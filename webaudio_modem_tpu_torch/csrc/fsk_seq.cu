@@ -1,0 +1,231 @@
+// K1 — the FSK demodulator's sequential stage, with the R stream.
+//
+// Replaces webaudio_modem_tpu/ops/pallas/fsk_seq.py `_kernel_r` (through
+// `_seq_main_call_r` / `seq_main(ring0=...)`) together with the lax
+// prefix and leftover code of ops/fsk_demod.py `_sequential_stage`: this
+// kernel takes the whole chunk, any length, any downsample phase.
+//
+// Per full-rate sample: AGC, band-pass biquad, NCO rotation with
+// first-order renormalization, I/Q low-pass biquads.  Per downsample
+// group: 2x average, atan2f, wrapped phase difference, post low-pass
+// biquad, polarity slicer, and R — the rolling ds-wide sum of the sliced
+// bits — through a ds-deep ring seeded from the previous chunk's bits.
+//
+// Design.  One thread per channel; the 20 state floats, the pending
+// downsample sums and the running R sum live in registers and the time
+// loop runs inside the thread.  Input and outputs are time-major [T, B],
+// so a warp's loads and stores at one step are 32 consecutive words.
+// The ds-deep bit ring is per-thread bytes in shared memory, laid out
+// [ds][blockDim] so a warp's ring accesses fall in distinct words.
+// With about one warp per SM nothing hides a load's latency, so each
+// thread loads a block of kBlock samples before computing them.
+//
+// What bounds it on an H100.  Each channel is one long dependency chain
+// (the AGC gain and every biquad feed back), about 60 dependent flops per
+// sample plus an atan2f and a sqrtf per group, so a thread cannot run
+// ahead; throughput comes only from the number of channels in flight.
+// Memory traffic is ~10 B per sample (4 B in; 2+4+4+2 B out per group of
+// two samples), ~0.2 GB per 0.1 s chunk at B=4096 — under 0.1 ms at
+// 3.35 TB/s, far below the latency-bound time of the chain.  Blocks are
+// 32 threads so that B=2048..4096 channels spread over up to 128 of the
+// 132 SMs; filling the card beyond one warp per SM (more channels, or
+// splitting time) is later work.
+//
+// Numerics.  Built without fast math and with -fmad=false: every
+// operation rounds exactly as the plain PyTorch version
+// (ops/kernels/fsk_seq.py:seq_plain) does, in the same order, and the
+// downsample sums start as `fi` for a group inside the chunk and as
+// `0 + fi` for a leftover group, as the reference does (signed zeros
+// reach atan2f).  R is an exact integer in f32 (<= ds), stored as bf16,
+// exact for ds <= 256.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+struct FskSeqCoef {
+  float pre[5];   // b0 b1 b2 a1 a2
+  float iq[5];
+  float post[5];
+  float agc_target, agc_attack, agc_release;
+  float cw, sw;   // NCO rotation per sample
+  float polarity;
+  int agc_enabled, ratio, ds;
+};
+
+namespace {
+
+constexpr int kThreads = 32;
+constexpr int kBlock = 8;   // samples loaded ahead per thread
+constexpr int kFront = 20;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 2.0f * kPi;
+
+__device__ __forceinline__ float biquad(const float c[5], float in, float x1,
+                                        float x2, float y1, float y2) {
+  // left to right, as the plain version: b0*x + b1*x1 + b2*x2 - a1*y1 - a2*y2
+  float f = c[0] * in;
+  f = f + c[1] * x1;
+  f = f + c[2] * x2;
+  f = f - c[3] * y1;
+  f = f - c[4] * y2;
+  return f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fsk_seq_kernel(const float* __restrict__ x, int T, int B,
+               const float* __restrict__ front_in,
+               float* __restrict__ front_out,
+               const float* __restrict__ acc_in, float* __restrict__ acc_out,
+               const __nv_bfloat16* __restrict__ ring0, int ds_phase,
+               __nv_bfloat16* __restrict__ bits, float* __restrict__ amps,
+               float* __restrict__ softs, __nv_bfloat16* __restrict__ rsum,
+               const FskSeqCoef c) {
+  extern __shared__ unsigned char ring[];  // [ds][blockDim.x]
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t Bs = static_cast<size_t>(B);
+  const int lane = threadIdx.x;
+  const int stride = blockDim.x;
+
+  float s[kFront];
+#pragma unroll
+  for (int k = 0; k < kFront; ++k) s[k] = front_in[k * Bs + b];
+  float g = s[0];
+  float px1 = s[1], px2 = s[2], py1 = s[3], py2 = s[4];
+  float nc = s[5], ns = s[6];
+  float ix1 = s[7], ix2 = s[8], iy1 = s[9], iy2 = s[10];
+  float qx1 = s[11], qx2 = s[12], qy1 = s[13], qy2 = s[14];
+  float last_phase = s[15];
+  float ox1 = s[16], ox2 = s[17], oy1 = s[18], oy2 = s[19];
+
+  float run = 0.0f;
+  for (int k = 0; k < c.ds; ++k) {
+    const float v = __bfloat162float(ring0[k * Bs + b]);
+    ring[k * stride + lane] = static_cast<unsigned char>(v);
+    run = run + v;
+  }
+
+  float acc_i = ds_phase > 0 ? acc_in[b] : 0.0f;
+  float acc_q = ds_phase > 0 ? acc_in[Bs + b] : 0.0f;
+  int phase = ds_phase;
+  int rp = 0;        // ring slot of the bit leaving the window
+  size_t out = 0;    // decisions written
+  const float ratio_f = static_cast<float>(c.ratio);
+
+  for (int t0 = 0; t0 < T; t0 += kBlock) {
+    // load a block of samples first, so their latencies overlap
+    float xs[kBlock];
+#pragma unroll
+    for (int u = 0; u < kBlock; ++u)
+      xs[u] = t0 + u < T ? x[(t0 + u) * Bs + b] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kBlock; ++u) {
+      const int t = t0 + u;
+      if (t >= T) break;
+      const float xt = xs[u];
+      // AGC
+      float y;
+      if (c.agc_enabled) {
+        y = xt * g;
+        const float level = fabsf(y);
+        const float tgt = c.agc_target / fmaxf(level, 1e-30f);
+        const float rate = level > c.agc_target ? c.agc_attack : c.agc_release;
+        if (level > 0.0f) {
+          float gn = g + (tgt - g) * rate;
+          gn = fminf(fmaxf(gn, 0.1f), 10.0f);
+          g = gn;
+        }
+      } else {
+        y = xt;
+      }
+      // band-pass pre-filter
+      const float f = biquad(c.pre, y, px1, px2, py1, py2);
+      px2 = px1; px1 = y; py2 = py1; py1 = f;
+      // NCO mix, then rotate the phasor and renormalize to first order
+      const float i_r = f * nc;
+      const float q_r = f * ns;
+      const float nc2 = nc * c.cw - ns * c.sw;
+      const float ns2 = ns * c.cw + nc * c.sw;
+      const float kk = 1.5f - 0.5f * (nc2 * nc2 + ns2 * ns2);
+      nc = nc2 * kk;
+      ns = ns2 * kk;
+      // I/Q low-pass
+      const float fi = biquad(c.iq, i_r, ix1, ix2, iy1, iy2);
+      ix2 = ix1; ix1 = i_r; iy2 = iy1; iy1 = fi;
+      const float fq = biquad(c.iq, q_r, qx1, qx2, qy1, qy2);
+      qx2 = qx1; qx1 = q_r; qy2 = qy1; qy1 = fq;
+
+      if (phase == 0 && t + c.ratio <= T) {  // first sample of a whole group
+        acc_i = fi;
+        acc_q = fq;
+      } else if (phase == 0) {                // first sample of the leftover
+        acc_i = 0.0f + fi;
+        acc_q = 0.0f + fq;
+      } else {
+        acc_i = acc_i + fi;
+        acc_q = acc_q + fq;
+      }
+      if (++phase < c.ratio) continue;
+      phase = 0;
+
+      // downsampled decision
+      const float avg_i = acc_i / ratio_f;
+      const float avg_q = acc_q / ratio_f;
+      const float cur = atan2f(avg_q, avg_i);
+      const float amp = sqrtf(avg_i * avg_i + avg_q * avg_q);
+      float diff = cur - last_phase;
+      diff = diff > kPi ? diff - kTwoPi : (diff < -kPi ? diff + kTwoPi : diff);
+      const float filt = biquad(c.post, diff, ox1, ox2, oy1, oy2);
+      ox2 = ox1; ox1 = diff; oy2 = oy1; oy1 = filt;
+      last_phase = cur;
+      const float bit = (c.polarity * filt > 0.0f) ? 1.0f : 0.0f;
+
+      unsigned char* slot = &ring[rp * stride + lane];
+      run = run + bit - static_cast<float>(*slot);
+      *slot = static_cast<unsigned char>(bit);
+      if (++rp == c.ds) rp = 0;
+
+      const size_t o = out * Bs + b;
+      bits[o] = __float2bfloat16(bit);
+      amps[o] = amp;
+      softs[o] = filt;
+      rsum[o] = __float2bfloat16(run);
+      ++out;
+    }
+  }
+
+  const float r[kFront] = {g,   px1, px2, py1, py2, nc,  ns,
+                           ix1, ix2, iy1, iy2, qx1, qx2, qy1,
+                           qy2, last_phase, ox1, ox2, oy1, oy2};
+#pragma unroll
+  for (int k = 0; k < kFront; ++k) front_out[k * Bs + b] = r[k];
+  // pending sums only while a group is open (the reference returns 0
+  // when the chunk ends on a group boundary)
+  acc_out[b] = phase != 0 ? acc_i : 0.0f;
+  acc_out[Bs + b] = phase != 0 ? acc_q : 0.0f;
+}
+
+}  // namespace
+
+// x f32 [T, B]; front f32 [20, B]; acc f32 [2, B]; ring0 bf16 [ds, B];
+// bits/rsum bf16 and amps/softs f32 [(ds_phase + T) / ratio, B]; `coef`
+// is a host pointer (ctypes passes structs holding arrays by value
+// unreliably).  Launches on `stream` and returns cudaGetLastError().
+extern "C" int wam_fsk_seq(const float* x, int T, int B,
+                           const float* front_in, float* front_out,
+                           const float* acc_in, float* acc_out,
+                           const void* ring0, int ds_phase, void* bits,
+                           float* amps, float* softs, void* rsum,
+                           const FskSeqCoef* coef, void* stream) {
+  const FskSeqCoef c = *coef;
+  const int blocks = (B + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(c.ds) * kThreads;
+  fsk_seq_kernel<<<blocks, kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      x, T, B, front_in, front_out, acc_in, acc_out,
+      static_cast<const __nv_bfloat16*>(ring0), ds_phase,
+      static_cast<__nv_bfloat16*>(bits), amps, softs,
+      static_cast<__nv_bfloat16*>(rsum), c);
+  return static_cast<int>(cudaGetLastError());
+}

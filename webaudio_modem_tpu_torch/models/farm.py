@@ -1,0 +1,149 @@
+"""ModemFarm — thousands of independent streaming FSK channels on one card.
+
+Counterpart of ``webaudio_modem_tpu/models/farm.py``: B concurrent
+48 kHz FSK streams demodulated with carried filter, NCO, sync and
+framing state, through the same ``demod_chunk`` as the B=1 FSKCore.
+Channels are a tensor dimension on the device given at construction.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from webaudio_modem_tpu.core import SignalQuality
+from webaudio_modem_tpu.utils.trace import metrics
+from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
+from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+
+
+class ModemFarm:
+    def __init__(self, config, batch: int, *, device, mesh=None):
+        if not isinstance(config, FSKConfig):
+            raise NotImplementedError(
+                f"{type(config).__name__}: only FSKConfig is ported; DBPSK "
+                "arrives with ROADMAP queue 1, slice D (item 13)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: sharding is not ported; ROADMAP queue 1, slice G "
+                "(item 18) decides what replaces it")
+        self.config = config
+        self.params = FSKParams.from_config(config)
+        self.batch = batch
+        self.device = torch.device(device)
+        self.state = fsk_demod.init_state(self.params, batch, self.device)
+        self._ds_phase = 0
+
+    # -- modulation ---------------------------------------------------------
+
+    def modulate(self, messages: Sequence[bytes]) -> torch.Tensor:
+        """[B] equal-length messages -> f32 [B, T] signal on the device."""
+        if len(messages) != self.batch:
+            raise ValueError(f"expected {self.batch} messages")
+        return fsk_mod.modulate_batch(self.params, messages, self.device)
+
+    # -- streaming demodulation ---------------------------------------------
+
+    def _as_samples(self, samples) -> torch.Tensor:
+        x = torch.as_tensor(samples, dtype=torch.float32, device=self.device)
+        if x.dim() != 2 or x.shape[0] != self.batch:
+            raise ValueError(f"expected [{self.batch}, T] samples, got "
+                             f"{tuple(x.shape)}")
+        return x
+
+    def demodulate_chunk(self, samples) -> fsk_demod.DemodOut:
+        """Feed one [B, T] frame; returns the DemodOut (device tensors).
+        Use ``collect_bytes`` to decode on the host."""
+        x = self._as_samples(samples)
+        self.state, out = fsk_demod.demod_chunk(
+            self.params, self._ds_phase, self.state, x)
+        self._ds_phase = (self._ds_phase + x.shape[-1]) \
+            % self.params.downsample_ratio
+        return out
+
+    @staticmethod
+    def collect_bytes(out: fsk_demod.DemodOut) -> List[bytes]:
+        counts = out.byte_count.cpu().numpy()
+        vals = out.bytes_out.cpu().numpy()
+        return [bytes(vals[b, :counts[b]]) for b in range(len(counts))]
+
+    def demodulate(self, samples, chunk_size: Optional[int] = None
+                   ) -> List[bytes]:
+        """Demodulate a full [B, T] batch (optionally in chunks),
+        returning per-channel decoded bytes; the host collects the bytes
+        after every chunk."""
+        x = self._as_samples(samples)
+        T = x.shape[1]
+        chunk = chunk_size or T
+        collected = [bytearray() for _ in range(self.batch)]
+        for start in range(0, T, chunk):
+            with metrics.timer("farm.chunk"):
+                out = self.demodulate_chunk(x[:, start:start + chunk])
+                pieces = self.collect_bytes(out)
+            for b, piece in enumerate(pieces):
+                collected[b] += piece
+        total = sum(len(c) for c in collected)
+        if total:
+            metrics.incr("farm.bytes_decoded", total)
+        return [bytes(c) for c in collected]
+
+    def demodulate_stream(self, samples, chunk_size: int) -> List[bytes]:
+        """Throughput mode: the same per-chunk computation as
+        ``demodulate`` (byte for byte the same decode), but the outputs
+        stay on the device until the last chunk, so the host does not
+        wait for the card between chunks."""
+        x = self._as_samples(samples)
+        outs = [self.demodulate_chunk(x[:, s:s + chunk_size])
+                for s in range(0, x.shape[1], chunk_size)]
+        collected = [bytearray() for _ in range(self.batch)]
+        for out in outs:
+            counts = out.byte_count.cpu().numpy()
+            vals = out.bytes_out.cpu().numpy()
+            for b in np.nonzero(counts)[0]:
+                collected[b] += bytes(vals[b, :counts[b]])
+        total = sum(len(c) for c in collected)
+        if total:
+            metrics.incr("farm.bytes_decoded", total)
+        return [bytes(c) for c in collected]
+
+    def reset(self) -> None:
+        self.state = fsk_demod.init_state(self.params, self.batch,
+                                          self.device)
+        self._ds_phase = 0
+
+    # -- observability ------------------------------------------------------
+
+    def get_status(self) -> dict:
+        return {
+            "batch": self.batch,
+            "sync_detections": self.state.sync_count.cpu().numpy(),
+            "eod_events": self.state.eod_count.cpu().numpy(),
+            "frames_started": self.state.started.cpu().numpy(),
+        }
+
+    def get_signal_quality(self) -> List[SignalQuality]:
+        """Per-channel SignalQuality: snr from the carried amplitude
+        window, ber from the sync-correlation mismatch, frequency offset
+        and phase jitter from the discriminator window statistics."""
+        ber, freq, jitter, eye = fsk_demod.quality_from_state(
+            self.params, self.state)
+        amps = self.state.amp_tail.cpu().numpy()          # [A, B]
+        thr = self.state.threshold.cpu().numpy()          # [B]
+        active = amps > thr[None, :]
+        cnt = active.sum(0)
+        asum = np.where(active, amps, 0.0).sum(0)
+        mean = asum / np.maximum(cnt, 1)
+        var = np.maximum((np.where(active, amps * amps, 0.0).sum(0)
+                          / np.maximum(cnt, 1)) - mean * mean, 0.0)
+        have = cnt >= 8
+        with np.errstate(divide="ignore", invalid="ignore"):
+            snr = np.where(have,
+                           10 * np.log10((mean ** 2 + 1e-30)
+                                         / (var + 1e-12)), 0.0)
+        return [SignalQuality(snr=float(snr[b]), ber=float(ber[b]),
+                              eye_opening=float(eye[b]),
+                              phase_jitter=float(jitter[b]),
+                              frequency_offset=float(freq[b]))
+                for b in range(self.batch)]
