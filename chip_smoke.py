@@ -3,31 +3,53 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — streaming hard-decision FSK demodulation
-of thousands of channels (300 baud, mark 1270 Hz / space 1070 Hz, 48 kHz,
-0.1 s chunks) — through the hand-written kernels K1
-(``webaudio_modem_tpu_torch/csrc/fsk_seq.cu``) and K2 (``csrc/
-fsk_framing.cu``), which it builds with nvcc first.  Phases:
+Drives the port's two main paths through the hand-written kernels,
+which it builds with nvcc first (one nvcc per source, all at once):
+
+  * streaming hard-decision FSK demodulation of thousands of channels
+    (300 baud, mark 1270 Hz / space 1070 Hz, 48 kHz, 0.1 s chunks):
+    K1 (``webaudio_modem_tpu_torch/csrc/fsk_seq.cu``) and K2
+    (``csrc/fsk_framing.cu``);
+  * the farm soft-FEC frame decode (1200 baud, 16-byte payloads at
+    8 dB, ``soft_fsk.decode_frames_batch``): K1 in its csum mode, K4
+    (``csrc/align.cu``) and K3 (``csrc/viterbi.cu``).
+
+Phases:
 
   1. the card: torch / CUDA versions, nvidia-smi name and power limit;
-  2. build K1 and K2 for sm_90a;
-  3. each kernel against its plain PyTorch version on the card, at
+  2. build every kernel for sm_90a;
+  3. K1 and K2 against their plain PyTorch versions on the card, at
      B=2048 on noisy chunks of distinct messages, with state carried;
      K2 also at maxb > 64 (a 32768-sample piece at 1200 baud);
-  4. the main path: ModemFarm(batch=4096, device="cuda") modulates and
-     decodes 4096 distinct 13-byte messages exactly, counting launches;
-     FSKCore round-trips b"Hello, World!";
+  4. the hard main path: ModemFarm(batch=4096, device="cuda") modulates
+     and decodes 4096 distinct 13-byte messages exactly, counting
+     launches; FSKCore round-trips b"Hello, World!";
   5. per-chunk times (CUDA events) of demod_chunk through the kernels
-     and through the plain versions, at B=2048 and 4096.
+     and through the plain versions, at B=2048 and 4096;
+  6. the soft path's kernels against their plain versions, exactly, on
+     the decode's own intermediate planes at B=2048: K1 with the bit
+     and amp streams dropped and the softs' inclusive running sum (also
+     held against a strict f32 loop over the full run's softs), K4 at
+     the header and body windows and at the extreme bases, K3 at the
+     header, body and a payload-100 trellis; K7 (K1 without R) at
+     50 baud (ds = 480), and 50-baud streams decoding exactly;
+  7. the soft main path: 2048 distinct random payloads at 8 dB decode
+     exactly with 1 / 2 / 2 launches of K1 / K4 / K3, and an erased
+     channel decodes to None;
+  8. soft timings at B=2048 and 4096 (per decode, realtime channels,
+     each kernel beside its plain version and, for K4, torch.gather),
+     peak device memory, and a torch.profiler breakdown.
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
-CUDA device it fails in phase 1 and prints no result.  The last line is
-one JSON object: {"ok": true, "device": {...}}.
+CUDA device it fails in phase 1 and prints no result.  The line before
+the last two is {"kernels": [...]}, then the nvidia-smi name and power
+limit; the last line is one JSON object: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -37,6 +59,28 @@ MAIN_BATCH = 4096
 CHECK_BATCH = 2048
 ATOL = 1e-4                       # softs, amps and state, kernel vs plain
 FLIP_SOFT = 1e-5                  # a bit may differ only this near 0
+SOFT_BATCHES = (2048, 4096)
+SOFT_PAYLOAD = 16                 # bytes (bench.py --family soft)
+SOFT_SNR_DB = 8.0
+LONG_PAYLOAD = 100                # the long-trellis check: T = 822
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per element, counted from the kernels' sources: K1 does
+# ~54 per full-rate sample (AGC 10, band-pass 9, mix 2, NCO rotation
+# and renorm 13, I/Q low-passes 18, downsample sums 2) and ~40 per
+# decision (two divides, atan2f counted as 20, amplitude 4, wrap 3,
+# post biquad 9, slicer 2, R 2); K2 ~40 per step (`_d_step`'s state
+# machine); K3 256 per lane-step (64 states x 2 adds, 1 compare,
+# 1 select) plus 128 per lane per 16 steps (max and subtract); K4 2 per
+# output (a subtract and the +-1 multiply)
+K1_OPS_PER_SAMPLE = 54
+K1_OPS_PER_DECISION = 40
+K2_OPS_PER_STEP = 40
+K3_OPS_PER_STEP = 256
+K3_OPS_PER_NORM = 128
+K4_OPS_PER_OUT = 2
 
 
 def _bench_config():
@@ -76,6 +120,38 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _nbytes(*tensors):
+    """Bytes of the tensors (None for a dropped stream counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(n_bytes, n_ops):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes over HBM bandwidth and the operations over
+    the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _timing(shape, ms, plain_ms, n_bytes, n_ops, library_ms=None):
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes": n_bytes, "ops": n_ops}
+
+
+def _print_timing(name, t, card):
+    lib = ("" if t["library_ms"] is None
+           else f", library {t['library_ms']:.4f} ms")
+    print(f"  {name} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.3f} ms{lib}, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}; {t['bytes'] / 1e6:.1f} MB, "
+          f"{t['ops'] / 1e6:.1f} M ops) [{card}]")
 
 
 def _check_k1(params, state, ds_phase, x, errs):
@@ -271,24 +347,418 @@ def phase_timings(device, rng, card):
             args = (params, 0, state.front, state.ds_acc,
                     state.bit_tail[-ds:], x)
             out = fsk_seq.seq(*args)
-            kernel_ms["fsk_seq"] = (_cuda_ms(lambda: fsk_seq.seq(*args), 20),
-                                    _cuda_ms(lambda: fsk_seq.seq_plain(*args),
-                                             1))
+            n = out[2].shape[0]
+            kernel_ms["fsk_seq"] = _timing(
+                f"T={CHUNK} B={B}, all streams",
+                _cuda_ms(lambda: fsk_seq.seq(*args), 20),
+                _cuda_ms(lambda: fsk_seq.seq_plain(*args), 1),
+                _nbytes(*args[2:], *out),
+                CHUNK * B * K1_OPS_PER_SAMPLE + n * B * K1_OPS_PER_DECISION)
             _, _, bits, amps, _, rsum = out
             ratios = fsk_demod._sync_ratios_from_r(params, state.r_tail,
                                                    rsum)
             ints, flts = fsk_demod._framing_carry(params, state)
+            sub_amps = torch.cat([state.amp_tail, amps])
             dargs = (params, ints, flts, state.bit_fill, bits, amps, ratios,
-                     torch.cat([state.amp_tail, amps]),
-                     fsk_demod.max_bytes(params, bits.shape[0]))
-            kernel_ms["fsk_framing"] = (
+                     sub_amps, fsk_demod.max_bytes(params, n))
+            dout = fsk_framing.stage_d_compact(*dargs)
+            kernel_ms["fsk_framing"] = _timing(
+                f"n_ds={n} B={B}",
                 _cuda_ms(lambda: fsk_framing.stage_d_compact(*dargs), 20),
                 _cuda_ms(lambda: fsk_framing.stage_d_compact_plain(*dargs),
-                         1))
-            for name, (k, p) in kernel_ms.items():
-                print(f"  {name} B={B} T={CHUNK}: kernel {k:.3f} ms, plain "
-                      f"{p:.1f} ms [{card}]")
+                         1),
+                _nbytes(ints, flts, state.bit_fill, bits, amps, ratios,
+                        sub_amps[:n], *dout),
+                n * B * K2_OPS_PER_STEP)
+            for name, t in kernel_ms.items():
+                _print_timing(name, t, card)
     return kernel_ms
+
+
+# ---------------------------------------------------------------------------
+# The soft-FEC path
+# ---------------------------------------------------------------------------
+
+def _soft_params():
+    from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
+
+    return FSKParams.from_config(FSKConfig())     # 1200 baud, ds = 20
+
+
+def _soft_batch(params, rng, B, device):
+    """(payloads, noisy [B, T] f32 on the card): B distinct random
+    payloads framed and synthesized by the port, AWGN at SOFT_SNR_DB."""
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    payloads = _messages(rng, B, SOFT_PAYLOAD)
+    sig = soft_fsk.encode_frames_batch(params, payloads, device=device)
+    return payloads, _awgn(sig, SOFT_SNR_DB, rng, device)
+
+
+def _soft_planes(params, noisy):
+    """The soft decode's intermediate planes, through the kernels, as
+    ``_decode_frames_fused`` computes them: K1's csum and R, the header
+    candidates' LLRs and trellis inputs, the body LLRs and theirs."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fec, fsk_demod, soft_fsk
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_seq
+
+    B = noisy.shape[0]
+    ds = params.ds_samples_per_bit
+    state = fsk_demod.init_state(params, B, noisy.device)
+    seq_args = (params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
+                noisy.t().contiguous())
+    out = fsk_seq.seq(*seq_args, **CSUM_FLAGS)
+    csum, rsum = out[4], out[5]
+    body_bits_n = soft_fsk._body_coded_bits(SOFT_PAYLOAD)
+    t_peak, peak_ok = soft_fsk._sync_peak(params, rsum)
+    starts, h_llr, valid = soft_fsk._header_llrs(params, csum, t_peak,
+                                                 peak_ok, body_bits_n)
+    L = h_llr.shape[0] * h_llr.shape[1]
+    h_a, h_d = fec.branch_sums(h_llr.reshape(L, -1, 2))
+    headers = fec._viterbi_core(h_llr.reshape(L, -1, 2),
+                                8 * soft_fsk.HEADER_PLAIN).reshape(
+        B, -1, 8 * soft_fsk.HEADER_PLAIN)
+    found, st = soft_fsk._select_candidate(headers, starts, valid,
+                                           SOFT_PAYLOAD)
+    b_starts = torch.where(found, st + soft_fsk.HEADER_CODED_BITS * ds,
+                           torch.zeros_like(st))
+    b_llr = soft_fsk._body_llrs(params, csum, b_starts, SOFT_PAYLOAD)
+    b_a, b_d = fec.branch_sums(b_llr.t().reshape(B, -1, 2))
+    n_ds = csum.shape[0]
+    align_calls = {
+        "header": soft_fsk._header_window(params, n_ds, t_peak),
+        "body": soft_fsk._body_window(params, n_ds, b_starts, SOFT_PAYLOAD)}
+    return dict(seq_args=seq_args, csum=csum, rsum=rsum,
+                header=(h_a, h_d, 8 * soft_fsk.HEADER_PLAIN),
+                body=(b_a, b_d, 8 * (SOFT_PAYLOAD + 2)),
+                align_calls=align_calls)
+
+
+CSUM_FLAGS = dict(emit_bits=False, emit_amps=False, emit_csum=True)
+
+
+def _long_trellis(rng, L, device):
+    """Trellis inputs of a payload-100 body: random coded streams as +-1
+    correlations plus Gaussian noise (sigma 0.5), T = 822 steps."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fec
+
+    n_bits = 8 * (LONG_PAYLOAD + 2)
+    bits = rng.integers(0, 2, (L, n_bits), dtype=np.uint8)
+    coded = fec.conv_encode_bits_batch(bits).astype(np.float32) * 2 - 1
+    coded += 0.5 * rng.standard_normal(coded.shape, dtype=np.float32)
+    soft = torch.from_numpy(coded).to(device).reshape(L, -1, 2)
+    a, d = fec.branch_sums(soft)
+    return a, d, n_bits, torch.from_numpy(bits).to(device)
+
+
+def _equal_or_raise(what, got, want):
+    """Raise unless ``got`` equals ``want`` exactly; return their max abs
+    difference (0.0 for two dropped streams)."""
+    import torch
+
+    if got is None or want is None:
+        if got is not want:
+            raise RuntimeError(f"{what}: a stream is dropped on one side "
+                               "only")
+        return 0.0
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise RuntimeError(f"{what}: kernel differs from its plain version")
+    return (float((got.double() - want.double()).abs().max())
+            if got.numel() else 0.0)
+
+
+def _align_bytes(csum, base, n_out, ds, stride, pad_lo, virt0, **_):
+    """Bytes K4 must move for these inputs: the distinct csum rows its
+    windows read (per channel), base, and the output."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import align
+
+    r = align.rows(base, n_out, stride, pad_lo)           # [n_out, B]
+    n_wsum = csum.shape[0] + (1 if virt0 else 0) - ds
+    n_in = ((r >= 0) & (r < n_wsum)).sum(0)               # [B]
+    if stride == 1:        # one contiguous run: rows r0 .. r_last + ds
+        reads = torch.where(n_in > 0, n_in + ds, 0)
+    elif stride == ds:     # a chain: the hi row of j is the lo row of j+1
+        reads = torch.where(n_in > 0, n_in + 1, 0)
+    else:
+        reads = 2 * n_in
+    return int(reads.sum()) * 4 + _nbytes(base) + n_out * base.numel() * 4
+
+
+def phase_soft_kernels_vs_plain(device, rng):
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
+    from webaudio_modem_tpu_torch.models.farm import ModemFarm
+    from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+    from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq, viterbi
+
+    params = _soft_params()
+    B = SOFT_BATCHES[0]
+    _, noisy = _soft_batch(params, rng, B, device)
+    planes = _soft_planes(params, noisy)
+    seq_args = planes["seq_args"]
+    errs = {"fsk_seq": [], "align": [], "viterbi": []}
+
+    # K1, csum mode: kernel vs plain, and the csum vs a strict f32 loop
+    # over the full run's softs
+    k = fsk_seq.seq(*seq_args, **CSUM_FLAGS)
+    p = fsk_seq.seq_plain(*seq_args, **CSUM_FLAGS)
+    full = fsk_seq.seq(*seq_args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("front", "ds_acc", "bits", "amps", "csum",
+                           "rsum"), k, p):
+        errs["fsk_seq"].append(_equal_or_raise(f"K1 csum mode {name}", a, b))
+    for i in (0, 1, 5):
+        _equal_or_raise("K1 csum mode vs full run", k[i], full[i])
+    _equal_or_raise("K1 csum vs strict f32 loop", k[4],
+                    fsk_seq.csum_strict(full[4]))
+    print(f"  K1 csum mode T={seq_args[-1].shape[0]} B={B}: identical to "
+          "plain (bits/amps dropped), csum == strict f32 loop over the "
+          "full run's softs, R and state == full run")
+
+    # K3 at the header, body and long-trellis shapes
+    for name, (a, d, n_bits) in (("header", planes["header"]),
+                                 ("body", planes["body"]),
+                                 ("payload-100", _long_trellis(
+                                     rng, B, device)[:3])):
+        kb = viterbi.decode(a, d, n_bits)
+        pb = viterbi.decode_plain(a, d, n_bits)
+        torch.cuda.synchronize()
+        errs["viterbi"].append(_equal_or_raise(f"K3 {name}", kb, pb))
+        print(f"  K3 {name} L={a.shape[1]} T={a.shape[0]}: bits equal "
+              f"({kb.numel()} bits)")
+    a, d, n_bits, truth = _long_trellis(rng, B, device)
+    wrong = int((viterbi.decode(a, d, n_bits) != truth).any(1).sum())
+    print(f"  K3 payload-100 at sigma 0.5: {wrong} of {B} trellises "
+          "with a bit error")
+
+    # K4 at the header and body windows, and at base 0 / the max base
+    csum = planes["csum"]
+    for name, (base, max_base, kw) in planes["align_calls"].items():
+        for label, b in (("decode's bases", base),
+                         ("base 0", torch.zeros_like(base)),
+                         (f"max base {max_base}",
+                          torch.full_like(base, max_base))):
+            ka = align.aligned_wsum(csum, b, **kw)
+            pa = align.aligned_wsum_plain(csum, b, **kw)
+            torch.cuda.synchronize()
+            errs["align"].append(_equal_or_raise(f"K4 {name} {label}",
+                                                 ka, pa))
+        print(f"  K4 {name} window {kw}: torch.equal at the decode's "
+              "bases, base 0 and the max base")
+
+    # K7: K1 without R, at ds > 256
+    p50 = FSKParams.from_config(FSKConfig(baud_rate=50,
+                                          mark_frequency=1270,
+                                          space_frequency=1070))
+    ds50 = p50.ds_samples_per_bit
+    msgs = _messages(rng, B, 4)
+    sig = fsk_mod.modulate_batch(p50, msgs, device)
+    x = _awgn(sig[:, CHUNK:2 * CHUNK], 20.0, rng, device).t().contiguous()
+    st = fsk_demod.init_state(p50, B, device)
+    args = (p50, 0, st.front, st.ds_acc, None, x)
+    k = fsk_seq.seq(*args, emit_rsum=False)
+    p = fsk_seq.seq_plain(*args, emit_rsum=False)
+    full = fsk_seq.seq(p50, 0, st.front, st.ds_acc, st.bit_tail[-ds50:], x)
+    torch.cuda.synchronize()
+    for name, a, b, f in zip(("front", "ds_acc", "bits", "amps", "softs",
+                              "rsum"), k, p, full):
+        errs["fsk_seq"].append(_equal_or_raise(f"K7 {name}", a, b))
+        if a is not None:
+            _equal_or_raise(f"K7 {name} vs full run", a, f)
+    print(f"  K7 (emit_rsum=False) ds={ds50} T={CHUNK} B={B}: identical to "
+          "plain and to the full run's streams")
+    farm = ModemFarm(p50.config, B, device=device)
+    sig = farm.modulate(msgs)
+    n_chunks = -(-sig.shape[1] // CHUNK)
+    before = fsk_seq.launches
+    decoded = farm.demodulate(sig, chunk_size=CHUNK)
+    exact = sum(g == m for g, m in zip(decoded, msgs))
+    print(f"  ModemFarm at 50 baud B={B}: {exact}/{B} exact over "
+          f"{n_chunks} chunks, {fsk_seq.launches - before} K7 launches")
+    if exact != B or fsk_seq.launches - before != n_chunks:
+        raise RuntimeError("50-baud decode through K7 failed")
+    return {name: max(v) for name, v in errs.items()}
+
+
+def phase_soft_main_path(device, rng):
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+    from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq, viterbi
+
+    params = _soft_params()
+    B = SOFT_BATCHES[0]
+    payloads, noisy = _soft_batch(params, rng, B, device)
+    fsk_seq.launches = align.launches = viterbi.launches = 0
+    t0 = time.perf_counter()
+    out = soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
+                                         device=device)
+    seconds = time.perf_counter() - t0
+    launches = {"fsk_seq": fsk_seq.launches, "align": align.launches,
+                "viterbi": viterbi.launches}
+    exact = sum(o == p for o, p in zip(out, payloads))
+    print(f"  decode_frames_batch B={B}, {SOFT_PAYLOAD}-byte payloads at "
+          f"{SOFT_SNR_DB:g} dB, T={noisy.shape[1]}: {exact}/{B} exact "
+          f"({seconds:.3f} s host wall, first call); launches {launches}")
+    if exact != B:
+        raise RuntimeError(f"soft decode: only {exact}/{B} exact")
+    if launches != {"fsk_seq": 1, "align": 2, "viterbi": 2}:
+        raise RuntimeError(f"soft decode launches {launches}")
+    erased = noisy.clone()
+    erased[0] = 0.0
+    out = soft_fsk.decode_frames_batch(params, erased, SOFT_PAYLOAD,
+                                         device=device)
+    if out[0] is not None or out[1:] != payloads[1:]:
+        raise RuntimeError("erased channel: expected None there and the "
+                           "other payloads exact")
+    print("  erased channel 0 -> None, the other channels exact")
+    return launches
+
+
+def _profile_decode(params, noisy, wall_ms, card):
+    """torch.profiler over 3 decodes: device time by kernel, and the
+    device's busy share of ``wall_ms``, the unprofiled per-decode wall
+    time (the profiler's own host cost would dilute it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
+                                         device=noisy.device)
+        torch.cuda.synchronize()
+
+    def dev_us(ev):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(ev, attr, None)
+            if v is not None:
+                return v
+        return 0.0
+
+    # device-side events only (kernels, copies, fills): an operator's own
+    # row would count its kernels' time a second time
+    rows = sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and dev_us(e) > 0), reverse=True)
+    if not rows:
+        print("  profile: the profiler recorded no device time")
+        return
+    total_ms = sum(r[0] for r in rows) / 1e3 / 3
+    print(f"  profile B={noisy.shape[0]}: device {total_ms:.3f} ms per "
+          f"decode, busy {100 * total_ms / wall_ms:.1f} % of the "
+          f"{wall_ms:.3f} ms pipelined wall [{card}]")
+    for us, key, count in rows[:12]:
+        print(f"    {us / 1e3 / 3:8.4f} ms/decode  {count // 3:4d} calls  "
+              f"{key[:70]}")
+
+
+def phase_soft_timings(device, rng, card):
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+    from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq, viterbi
+
+    params = _soft_params()
+    timings = {}
+    for B in SOFT_BATCHES:
+        payloads, noisy = _soft_batch(params, rng, B, device)
+        T = noisy.shape[1]
+        audio_s = T / params.sample_rate
+        for _ in range(2):
+            soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
+                                         device=device)
+        torch.cuda.synchronize()
+        reps = 10
+        t0 = time.perf_counter()
+        pending = [soft_fsk.decode_frames_batch_async(
+            params, noisy, SOFT_PAYLOAD, device=device)
+            for _ in range(reps)]
+        outs = [p() for p in pending]
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        if any(o != payloads for o in outs):
+            raise RuntimeError("timed decodes were not exact")
+        dev_ms = _cuda_ms(lambda: soft_fsk._decode_frames_fused(
+            params, noisy, SOFT_PAYLOAD), reps)
+        print(f"  soft decode B={B} T={T} ({audio_s:.4f} s of audio): "
+              f"{wall_ms:.3f} ms per decode pipelined (host wall), "
+              f"{dev_ms:.3f} ms enqueue-to-done (CUDA events); "
+              f"{B * audio_s / (wall_ms / 1e3):,.0f} realtime channels "
+              f"[{card}]")
+        timings[f"decode_B{B}"] = {"wall_ms": wall_ms, "event_ms": dev_ms,
+                                   "realtime_channels":
+                                       B * audio_s / (wall_ms / 1e3)}
+        if B != SOFT_BATCHES[-1]:
+            continue
+
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
+                                         device=device)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory, decode at B={B}: {peak / 2**20:.1f} "
+              f"MiB ({(peak - base_mem) / 2**20:.1f} MiB above the "
+              f"{base_mem / 2**20:.1f} MiB held before) [{card}]")
+        timings["peak_mib"] = peak / 2 ** 20
+
+        planes = _soft_planes(params, noisy)
+        seq_args = planes["seq_args"]
+        out = fsk_seq.seq(*seq_args, **CSUM_FLAGS)
+        n = out[4].shape[0]
+        timings["fsk_seq_csum"] = _timing(
+            f"T={T} B={B}, csum mode (bits/amps dropped)",
+            _cuda_ms(lambda: fsk_seq.seq(*seq_args, **CSUM_FLAGS), 5),
+            _cuda_ms(lambda: fsk_seq.seq_plain(*seq_args, **CSUM_FLAGS), 1),
+            _nbytes(*seq_args[2:], *out),
+            T * B * K1_OPS_PER_SAMPLE + n * B * K1_OPS_PER_DECISION)
+        for name, (a, d, n_bits) in (("header", planes["header"]),
+                                     ("body", planes["body"]),
+                                     ("payload-100", _long_trellis(
+                                         rng, B // 2, device)[:3])):
+            steps, L = a.shape
+            bits = viterbi.decode(a, d, n_bits)
+            timings[f"viterbi_{name}"] = _timing(
+                f"{name}: L={L} T={steps}",
+                _cuda_ms(lambda: viterbi.decode(a, d, n_bits), 20),
+                _cuda_ms(lambda: viterbi.decode_plain(a, d, n_bits), 1),
+                _nbytes(a, d) + steps * L,      # u8 bits out
+                L * (steps * K3_OPS_PER_STEP
+                     + (steps // 16) * K3_OPS_PER_NORM))
+            del bits
+        csum = planes["csum"]
+        for name, (base, _, kw) in planes["align_calls"].items():
+            wsum = align.window_sums(csum, kw["ds"], kw["polarity"],
+                                     kw["virt0"])
+            idx = align.rows(base, kw["n_out"], kw["stride"],
+                             kw["pad_lo"]).clamp(0, wsum.shape[0] - 1)
+            timings[f"align_{name}"] = _timing(
+                f"{name} window: {kw['n_out']} x {B}, stride "
+                f"{kw['stride']}",
+                _cuda_ms(lambda: align.aligned_wsum(csum, base, **kw), 20),
+                _cuda_ms(lambda: align.aligned_wsum_plain(csum, base, **kw),
+                         5),
+                _align_bytes(csum, base, **kw),
+                kw["n_out"] * B * K4_OPS_PER_OUT,
+                library_ms=_cuda_ms(lambda: torch.gather(wsum, 0, idx), 20))
+        for name, t in timings.items():
+            if isinstance(t, dict) and "shape" in t:
+                _print_timing(name, t, card)
+        try:
+            _profile_decode(params, noisy, wall_ms, card)
+        except RuntimeError as exc:     # a measurement, not a check
+            print(f"  profile: torch.profiler failed: {exc}")
+    return timings
 
 
 def main() -> int:
@@ -306,32 +776,75 @@ def main() -> int:
 
     print("phase 2: build")
     t0 = time.perf_counter()
-    path = _build.build()
-    print(f"  {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  {line.strip()}")
+    paths = _build.build()
+    print(f"  {len(paths)} libraries in {time.perf_counter() - t0:.1f} s "
+          "(one nvcc per source, started together)")
+    for name, log in sorted(_build.build_log.items()):
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+        if not regs:
+            raise RuntimeError(f"{name}: no ptxas report in the build log")
+        print(f"  {name}: {len(regs)} kernel(s), at most {max(regs)} "
+              f"registers, {sum(spills)} bytes of spill stores and loads")
 
     rng = np.random.default_rng(0)
-    print("phase 3: kernels vs plain on the card")
+    print("phase 3: hard-path kernels vs plain on the card")
     max_err = phase_kernels_vs_plain(device, rng)
-    print("phase 4: main path")
-    launches = phase_main_path(device, rng)
-    print("phase 5: timings")
+    print("phase 4: hard main path")
+    hard_launches = phase_main_path(device, rng)
+    print("phase 5: hard-path timings")
     kernel_ms = phase_timings(device, rng, card)
+    print("phase 6: soft-path kernels vs plain on the card")
+    for name, err in phase_soft_kernels_vs_plain(device, rng).items():
+        max_err[name] = max(max_err.get(name, 0.0), err)
+    print("phase 7: soft main path")
+    soft_launches = phase_soft_main_path(device, rng)
+    print("phase 8: soft-path timings")
+    soft = phase_soft_timings(device, rng, card)
 
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
-    sources = {"fsk_seq": ("webaudio_modem_tpu_torch/csrc/fsk_seq.cu",
-                           "webaudio_modem_tpu/ops/pallas/fsk_seq.py:131"),
-               "fsk_framing": ("webaudio_modem_tpu_torch/csrc/fsk_framing.cu",
-                               "webaudio_modem_tpu/ops/pallas/"
-                               "fsk_framing.py:208")}
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": max_err[name], "ms": kernel_ms[name][0],
-                "plain_ms": kernel_ms[name][1]}
-               for name, (src, rep) in sources.items()]
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib",
+                                        "webaudio_modem_tpu"))
+    if bad:
+        raise RuntimeError(f"the port imported {bad[:5]}")
+
+    def row(name, src, rep, t, extra):
+        by_path = {"hard_fsk": hard_launches.get(name, 0),
+                   "soft_fec": soft_launches.get(name, 0)}
+        if not any(by_path.values()):
+            raise RuntimeError(f"{name}: no launch on a main path")
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda",
+                "source": f"webaudio_modem_tpu_torch/csrc/{src}",
+                "replaces": f"webaudio_modem_tpu/ops/pallas/{rep}",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": max_err[name],
+                **{k: t[k] for k in keys}, "shape": t["shape"], **extra}
+
+    def others(*names):
+        return {"other_shapes": [
+            {k: soft[n][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+            for n in names]}
+
+    kernels = [
+        row("fsk_seq", "fsk_seq.cu", "fsk_seq.py:131", kernel_ms["fsk_seq"],
+            {"modes": {
+                "all streams (hard path)": "the row's numbers",
+                "emit_csum, bits/amps dropped (soft path)":
+                    {k: soft["fsk_seq_csum"][k]
+                     for k in ("shape", "ms", "plain_ms", "bound_ms",
+                               "bound_by")},
+                "emit_rsum=False: K7, fsk_seq.py:61 (ds > 256)":
+                    "exact vs plain in phase 6"}}),
+        row("fsk_framing", "fsk_framing.cu", "fsk_framing.py:208",
+            kernel_ms["fsk_framing"], {}),
+        row("viterbi", "viterbi.cu", "viterbi.py:82", soft["viterbi_header"],
+            others("viterbi_body", "viterbi_payload-100")),
+        row("align", "align.cu", "align.py:75", soft["align_header"],
+            others("align_body")),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,30 @@
 """Guards against hidden fallbacks in the port.
 
-The port and chip_smoke.py must not import JAX (the card's machine has
-none); a kernel wrapper given a tensor that is not on the CPU launches
-its kernel or raises, never runs the plain version; and chip_smoke.py
-fails, printing no result, where there is no CUDA device.
+The port and chip_smoke.py must import neither JAX (the card's machine
+has none) nor anything of the JAX package ``webaudio_modem_tpu`` (the
+port keeps its own copies); the entry points run on the card unless the
+caller asks for the CPU, and a CUDA request without a card raises; a
+kernel wrapper given a tensor that is not on the CPU launches its kernel
+or raises, never runs the plain version; and chip_smoke.py fails,
+printing no result, where there is no CUDA device.
 """
 
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
-from webaudio_modem_tpu_torch.ops import fsk_demod
-from webaudio_modem_tpu_torch.ops.kernels import _build, fsk_framing, fsk_seq
+from webaudio_modem_tpu_torch.models.farm import ModemFarm
+from webaudio_modem_tpu_torch.models.fsk import FSKCore
+from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod, soft_fsk
+from webaudio_modem_tpu_torch.ops.kernels import (_build, align, fsk_framing,
+                                                  fsk_seq, viterbi)
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -29,26 +37,69 @@ def _run(code_or_args, timeout):
                           capture_output=True, text=True, timeout=timeout)
 
 
-def test_port_and_smoke_import_no_jax():
-    proc = _run(
-        "import sys\n"
-        "import webaudio_modem_tpu_torch\n"
-        "import webaudio_modem_tpu_torch.models.config\n"
-        "import webaudio_modem_tpu_torch.models.fsk\n"
-        "import webaudio_modem_tpu_torch.models.farm\n"
-        "import webaudio_modem_tpu_torch.ops.fsk_mod\n"
-        "import webaudio_modem_tpu_torch.ops.fsk_demod\n"
-        "import webaudio_modem_tpu_torch.ops.kernels._build\n"
-        "import webaudio_modem_tpu_torch.ops.kernels.fsk_seq\n"
-        "import webaudio_modem_tpu_torch.ops.kernels.fsk_framing\n"
-        "import webaudio_modem_tpu_torch.utils.device\n"
-        "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-        "assert not bad, bad\n"
-        "print('clean')\n", timeout=120)
+# every module of the port, then chip_smoke, with a finder in front of
+# sys.meta_path that refuses JAX and the JAX package outright
+_BLOCKED_IMPORTS = """
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "webaudio_modem_tpu")
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+sys.meta_path.insert(0, Refuse())
+import webaudio_modem_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names), "modules clean")
+"""
+
+
+def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
+    proc = _run(_BLOCKED_IMPORTS, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "clean"
+    n, rest = proc.stdout.strip().split(" ", 1)
+    assert rest == "modules clean"
+    # the soft slice's modules are among those walked
+    assert int(n) >= 20, proc.stdout
+
+
+@pytest.mark.parametrize("fn", [
+    ModemFarm.__init__, FSKCore.__init__, fsk_mod.modulate_bits,
+    fec.viterbi_decode_soft, fec.viterbi_decode_bits, fec.decode_bytes,
+    soft_fsk.encode_frame_signal, soft_fsk.encode_frames_batch,
+    soft_fsk.decode_frames_batch, soft_fsk.decode_frames_batch_async,
+], ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    """The default device is the card; where there is none, the entry
+    points refuse instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = FSKParams.from_config(FSKConfig())
+    calls = [
+        lambda: ModemFarm(FSKConfig(), 2),
+        lambda: FSKCore(FSKConfig()),
+        lambda: soft_fsk.decode_frames_batch(
+            params, torch.zeros((1, 64)), 4),
+        lambda: soft_fsk.encode_frames_batch(params, [b"abcd"]),
+        lambda: fec.viterbi_decode_bits(np.zeros(12, np.uint8), 0),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -58,25 +109,35 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     assert _build.use_kernel(torch.zeros(2)) is False
 
 
-@pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing"])
+def _launches():
+    return (fsk_seq.launches, fsk_framing.launches, viterbi.launches,
+            align.launches)
+
+
+@pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "viterbi",
+                                    "align"])
 def test_wrappers_raise_off_cpu(kernel):
     """Tensors on a device that is neither the CPU nor CUDA are refused,
     not handed to the plain version."""
     params = FSKParams.from_config(FSKConfig())
     state = fsk_demod.init_state(params, 4, "meta")
     ds = params.ds_samples_per_bit
-    before = (fsk_seq.launches, fsk_framing.launches)
+    z = torch.zeros((8, 4), device="meta")
+    before = _launches()
     with pytest.raises(ValueError, match="CPU tensors"):
         if kernel == "fsk_seq":
             fsk_seq.seq(params, 0, state.front, state.ds_acc,
-                        state.bit_tail[-ds:],
-                        torch.zeros((8, 4), device="meta"))
-        else:
+                        state.bit_tail[-ds:], z)
+        elif kernel == "fsk_framing":
             ints, flts = fsk_demod._framing_carry(params, state)
-            z = torch.zeros((8, 4), device="meta")
             fsk_framing.stage_d_compact(
                 params, ints, flts, state.bit_fill, z.bfloat16(), z, z, z, 4)
-    assert (fsk_seq.launches, fsk_framing.launches) == before
+        elif kernel == "viterbi":
+            viterbi.decode(z, z, 2)
+        else:
+            align.aligned_wsum(z, torch.zeros(4, dtype=torch.int32,
+                                              device="meta"), 3, 2)
+    assert _launches() == before
 
 
 def test_wrappers_refuse_mixed_devices():

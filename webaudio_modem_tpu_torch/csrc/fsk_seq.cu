@@ -1,9 +1,22 @@
-// K1 — the FSK demodulator's sequential stage, with the R stream.
+// K1 — the FSK demodulator's sequential stage, with the R stream, and
+// K7 — the same stage without R.
 //
 // Replaces webaudio_modem_tpu/ops/pallas/fsk_seq.py `_kernel_r` (through
-// `_seq_main_call_r` / `seq_main(ring0=...)`) together with the lax
-// prefix and leftover code of ops/fsk_demod.py `_sequential_stage`: this
-// kernel takes the whole chunk, any length, any downsample phase.
+// `_seq_main_call_r` / `seq_main(ring0=...)`) and `_kernel` (K7, through
+// `_seq_main_call`), together with the lax prefix and leftover code of
+// ops/fsk_demod.py `_sequential_stage`: this kernel takes the whole
+// chunk, any length, any downsample phase.
+//
+// Stream flags (the reference's emit_bits / emit_amps / emit_csum, and
+// the R-less K7): a null `bits` or `amps` pointer stores nothing for
+// that stream (and a null `amps` skips the sqrtf); `emit_rsum` = 0 skips
+// the ring and R (K7); `emit_csum` = 1 stores in the softs slot the
+// INCLUSIVE f32 running sum of the softs, `cs = cs + soft` in decision
+// order from cs = 0 (the add sequence of ops/pallas/cumsum0.py).
+// Retained streams are bit-identical to the full run.  The flags are
+// template parameters, one instantiation per combination, so the
+// all-streams kernel of the hard path carries no test for them (as
+// runtime arguments they cost it 13 % on an H100).
 //
 // Per full-rate sample: AGC, band-pass biquad, NCO rotation with
 // first-order renormalization, I/Q low-pass biquads.  Per downsample
@@ -72,6 +85,7 @@ __device__ __forceinline__ float biquad(const float c[5], float in, float x1,
   return f;
 }
 
+template <bool kBits, bool kAmps, bool kCsum, bool kRsum>
 __global__ void __launch_bounds__(kThreads)
 fsk_seq_kernel(const float* __restrict__ x, int T, int B,
                const float* __restrict__ front_in,
@@ -100,11 +114,14 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
   float ox1 = s[16], ox2 = s[17], oy1 = s[18], oy2 = s[19];
 
   float run = 0.0f;
-  for (int k = 0; k < c.ds; ++k) {
-    const float v = __bfloat162float(ring0[k * Bs + b]);
-    ring[k * stride + lane] = static_cast<unsigned char>(v);
-    run = run + v;
+  if constexpr (kRsum) {
+    for (int k = 0; k < c.ds; ++k) {
+      const float v = __bfloat162float(ring0[k * Bs + b]);
+      ring[k * stride + lane] = static_cast<unsigned char>(v);
+      run = run + v;
+    }
   }
+  float cs = 0.0f;   // running sum of the softs (emit_csum)
 
   float acc_i = ds_phase > 0 ? acc_in[b] : 0.0f;
   float acc_q = ds_phase > 0 ? acc_in[Bs + b] : 0.0f;
@@ -173,7 +190,6 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
       const float avg_i = acc_i / ratio_f;
       const float avg_q = acc_q / ratio_f;
       const float cur = atan2f(avg_q, avg_i);
-      const float amp = sqrtf(avg_i * avg_i + avg_q * avg_q);
       float diff = cur - last_phase;
       diff = diff > kPi ? diff - kTwoPi : (diff < -kPi ? diff + kTwoPi : diff);
       const float filt = biquad(c.post, diff, ox1, ox2, oy1, oy2);
@@ -181,16 +197,22 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
       last_phase = cur;
       const float bit = (c.polarity * filt > 0.0f) ? 1.0f : 0.0f;
 
-      unsigned char* slot = &ring[rp * stride + lane];
-      run = run + bit - static_cast<float>(*slot);
-      *slot = static_cast<unsigned char>(bit);
-      if (++rp == c.ds) rp = 0;
-
       const size_t o = out * Bs + b;
-      bits[o] = __float2bfloat16(bit);
-      amps[o] = amp;
-      softs[o] = filt;
-      rsum[o] = __float2bfloat16(run);
+      if constexpr (kRsum) {
+        unsigned char* slot = &ring[rp * stride + lane];
+        run = run + bit - static_cast<float>(*slot);
+        *slot = static_cast<unsigned char>(bit);
+        if (++rp == c.ds) rp = 0;
+        rsum[o] = __float2bfloat16(run);
+      }
+      if constexpr (kBits) bits[o] = __float2bfloat16(bit);
+      if constexpr (kAmps) amps[o] = sqrtf(avg_i * avg_i + avg_q * avg_q);
+      if constexpr (kCsum) {
+        cs = cs + filt;
+        softs[o] = cs;
+      } else {
+        softs[o] = filt;
+      }
       ++out;
     }
   }
@@ -206,23 +228,44 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
   acc_out[Bs + b] = phase != 0 ? acc_q : 0.0f;
 }
 
+using FskSeqKernel = void (*)(const float*, int, int, const float*, float*,
+                              const float*, float*, const __nv_bfloat16*, int,
+                              __nv_bfloat16*, float*, float*, __nv_bfloat16*,
+                              const FskSeqCoef);
+
+// every combination of the stream flags, indexed by
+// bits | amps << 1 | csum << 2 | rsum << 3
+#define WAM_FSK_SEQ(m)                                                  \
+  fsk_seq_kernel<((m) & 1) != 0, ((m) & 2) != 0, ((m) & 4) != 0,        \
+                 ((m) & 8) != 0>
+const FskSeqKernel kKernels[16] = {
+    WAM_FSK_SEQ(0),  WAM_FSK_SEQ(1),  WAM_FSK_SEQ(2),  WAM_FSK_SEQ(3),
+    WAM_FSK_SEQ(4),  WAM_FSK_SEQ(5),  WAM_FSK_SEQ(6),  WAM_FSK_SEQ(7),
+    WAM_FSK_SEQ(8),  WAM_FSK_SEQ(9),  WAM_FSK_SEQ(10), WAM_FSK_SEQ(11),
+    WAM_FSK_SEQ(12), WAM_FSK_SEQ(13), WAM_FSK_SEQ(14), WAM_FSK_SEQ(15)};
+#undef WAM_FSK_SEQ
+
 }  // namespace
 
-// x f32 [T, B]; front f32 [20, B]; acc f32 [2, B]; ring0 bf16 [ds, B];
-// bits/rsum bf16 and amps/softs f32 [(ds_phase + T) / ratio, B]; `coef`
-// is a host pointer (ctypes passes structs holding arrays by value
-// unreliably).  Launches on `stream` and returns cudaGetLastError().
+// x f32 [T, B]; front f32 [20, B]; acc f32 [2, B]; ring0 bf16 [ds, B]
+// (null with emit_rsum = 0); bits/rsum bf16 and amps/softs f32
+// [(ds_phase + T) / ratio, B], bits/amps null when dropped, rsum null
+// with emit_rsum = 0; `coef` is a host pointer (ctypes passes structs
+// holding arrays by value unreliably).  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int wam_fsk_seq(const float* x, int T, int B,
                            const float* front_in, float* front_out,
                            const float* acc_in, float* acc_out,
                            const void* ring0, int ds_phase, void* bits,
                            float* amps, float* softs, void* rsum,
+                           int emit_csum, int emit_rsum,
                            const FskSeqCoef* coef, void* stream) {
   const FskSeqCoef c = *coef;
   const int blocks = (B + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(c.ds) * kThreads;
-  fsk_seq_kernel<<<blocks, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = emit_rsum ? static_cast<size_t>(c.ds) * kThreads : 0;
+  const int m = (bits != nullptr ? 1 : 0) | (amps != nullptr ? 2 : 0) |
+                (emit_csum ? 4 : 0) | (emit_rsum ? 8 : 0);
+  kKernels[m]<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, T, B, front_in, front_out, acc_in, acc_out,
       static_cast<const __nv_bfloat16*>(ring0), ds_phase,
       static_cast<__nv_bfloat16*>(bits), amps, softs,

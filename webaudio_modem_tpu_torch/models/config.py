@@ -3,8 +3,8 @@
 Counterpart of ``webaudio_modem_tpu/models/config.py``, written again
 because importing that module imports JAX (through
 ``webaudio_modem_tpu/models/__init__.py``).  Field names, defaults and
-the derivation are the same; the filter design functions are reused
-from ``webaudio_modem_tpu.ops.filters``, which is numpy only.
+the derivation are the same; the filter design functions are the
+port's own copy (``ops/filters.py``).
 
 ``FSKParams`` is frozen and hashable so that per-configuration tables
 (sync sign matrix, quality calibration) can be cached on it.
@@ -16,7 +16,7 @@ import dataclasses
 import math
 from typing import Literal, Mapping, Tuple
 
-from webaudio_modem_tpu.ops import filters
+from webaudio_modem_tpu_torch.ops import filters
 
 Parity = Literal["none", "even", "odd"]
 

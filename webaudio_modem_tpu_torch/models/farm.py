@@ -3,7 +3,8 @@
 Counterpart of ``webaudio_modem_tpu/models/farm.py``: B concurrent
 48 kHz FSK streams demodulated with carried filter, NCO, sync and
 framing state, through the same ``demod_chunk`` as the B=1 FSKCore.
-Channels are a tensor dimension on the device given at construction.
+Channels are a tensor dimension on the device given at construction
+(the card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -13,14 +14,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from webaudio_modem_tpu.core import SignalQuality
-from webaudio_modem_tpu.utils.trace import metrics
+from webaudio_modem_tpu_torch.core import SignalQuality
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+from webaudio_modem_tpu_torch.utils.device import resolve_device
+from webaudio_modem_tpu_torch.utils.trace import metrics
 
 
 class ModemFarm:
-    def __init__(self, config, batch: int, *, device, mesh=None):
+    def __init__(self, config, batch: int, *, device="cuda", mesh=None):
         if not isinstance(config, FSKConfig):
             raise NotImplementedError(
                 f"{type(config).__name__}: only FSKConfig is ported; DBPSK "
@@ -32,7 +34,7 @@ class ModemFarm:
         self.config = config
         self.params = FSKParams.from_config(config)
         self.batch = batch
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = fsk_demod.init_state(self.params, batch, self.device)
         self._ds_phase = 0
 

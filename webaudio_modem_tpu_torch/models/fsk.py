@@ -4,7 +4,7 @@ Counterpart of ``webaudio_modem_tpu/models/fsk.py``, with the same
 ``configure`` / ``modulate_data`` / ``demodulate_data`` / ``reset`` /
 ``get_status`` / ``get_signal_quality`` semantics.  It is a B=1 view of
 the same ``demod_chunk`` that drives ModemFarm, on the device given at
-construction.
+construction (the card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -14,19 +14,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from webaudio_modem_tpu.core import IModulator, SignalQuality
-from webaudio_modem_tpu.utils.trace import metrics
+from webaudio_modem_tpu_torch.core import IModulator, SignalQuality
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+from webaudio_modem_tpu_torch.utils.device import resolve_device
+from webaudio_modem_tpu_torch.utils.trace import metrics
 
 
 class FSKCore(IModulator):
     name = "FSK"
     type = "FSK"
 
-    def __init__(self, config: Optional[FSKConfig] = None, *, device):
+    def __init__(self, config: Optional[FSKConfig] = None, *,
+                 device="cuda"):
         super().__init__()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._config: Optional[FSKConfig] = None
         self.params: Optional[FSKParams] = None
         self._state: Optional[fsk_demod.DemodState] = None

@@ -6,7 +6,8 @@ stages per chunk:
 
   A+B. sequential stage (AGC, pre-filter, NCO, I/Q LPFs, 2x average,
        atan2 discriminator, post LPF, slicer) and the rolling ds-wide
-       bit sums R — kernel K1, ``ops/kernels/fsk_seq.py``;
+       bit sums R — kernel K1, ``ops/kernels/fsk_seq.py`` (K7, the same
+       kernel with ``emit_rsum=False``, where ds > 256);
   C.   frame-sync correlation: one exact f32 band matmul over R
        (``_sync_ratios_from_r``), or an exact cumsum form for ds > 256;
   D.   framing state machine and byte compaction — kernel K2,
@@ -344,9 +345,11 @@ def demod_chunk(params: FSKParams, ds_phase: int, state: DemodState,
                else fsk_framing.stage_d_compact)
 
     x = samples.t().contiguous()
+    # R is exact in bf16 only up to ds = 256; above it K7 (no R) runs and
+    # stage C takes the exact cumsum form over the bits
     front, ds_acc, bits, amps, softs, rsum = seq(
-        params, ds_phase, state.front, state.ds_acc, state.bit_tail[-ds:],
-        x)
+        params, ds_phase, state.front, state.ds_acc,
+        state.bit_tail[-ds:] if use_r else None, x, emit_rsum=use_r)
     n_ds = bits.shape[0]
     maxb = max_bytes(params, n_ds)
     if n_ds == 0:

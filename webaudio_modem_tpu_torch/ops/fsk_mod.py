@@ -134,18 +134,12 @@ def _int_config(params: FSKParams) -> bool:
             and float(params.sample_rate).is_integer())
 
 
-def modulate_batch(params: FSKParams, messages: Sequence[bytes],
-                   device) -> torch.Tensor:
-    """Modulate a batch of equal-length messages -> f32 [B, T] on
-    ``device``."""
-    lengths = {len(m) for m in messages}
-    if len(lengths) != 1:
-        raise ValueError(
-            "modulate_batch requires equal-length messages; pad at the "
-            "transport layer or call per-message")
-    bits = frame_bits_batch(params, [bytes(m) for m in messages])
-    total_bytes = bits.shape[-1] // params.bits_per_byte
-    lead = params.samples_per_bit * 2 if total_bytes > 0 else 0
+def synth_bits_batch(params: FSKParams, bits: np.ndarray, lead: int,
+                     device) -> torch.Tensor:
+    """Bit rows [B, n] -> f32 [B, T] on ``device``, with ``lead`` samples
+    of silence before and one byte's worth after: the exact integer
+    phase prefix for integer frequencies, float64 host tables otherwise;
+    the sine expansion runs on the device."""
     trail = params.bits_per_byte * params.samples_per_bit
     if _int_config(params):
         acc = torch.from_numpy(_phase_acc_int(params, bits)).to(device)
@@ -158,6 +152,37 @@ def modulate_batch(params: FSKParams, messages: Sequence[bytes],
                   device)
 
 
+def modulate_batch(params: FSKParams, messages: Sequence[bytes],
+                   device) -> torch.Tensor:
+    """Modulate a batch of equal-length messages -> f32 [B, T] on
+    ``device``."""
+    lengths = {len(m) for m in messages}
+    if len(lengths) != 1:
+        raise ValueError(
+            "modulate_batch requires equal-length messages; pad at the "
+            "transport layer or call per-message")
+    bits = frame_bits_batch(params, [bytes(m) for m in messages])
+    total_bytes = bits.shape[-1] // params.bits_per_byte
+    lead = params.samples_per_bit * 2 if total_bytes > 0 else 0
+    return synth_bits_batch(params, bits, lead, device)
+
+
 def modulate(params: FSKParams, data: bytes, device) -> np.ndarray:
     """Modulate one message on ``device`` -> float32 numpy [T]."""
     return modulate_batch(params, [data], device)[0].cpu().numpy()
+
+
+def modulate_bits(params: FSKParams, bits, device="cuda") -> np.ndarray:
+    """Modulate a raw bit sequence (no UART framing) -> float32 numpy [T].
+
+    Same phase-continuous synthesis and lead/trail layout as
+    ``modulate`` (float64 host phase tables, as the reference's
+    ``modulate_bits``); used by the soft-decision FEC path
+    (``ops/soft_fsk.py``), whose bits are convolutionally coded instead
+    of UART-framed."""
+    bits = np.asarray(bits, dtype=np.int8)[None]
+    offsets, omega = _phase_tables(params, bits)
+    lead = params.samples_per_bit * 2
+    trail = params.bits_per_byte * params.samples_per_bit
+    return _synth(offsets, omega, params.samples_per_bit, (lead, trail),
+                  device)[0].cpu().numpy()

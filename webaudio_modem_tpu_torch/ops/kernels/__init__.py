@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 Each kernel module holds a wrapper (``fsk_seq.seq``,
-``fsk_framing.stage_d_compact``) and its plain PyTorch version
-(``*_plain``).  A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel built from ``csrc/`` or raises.
-Importing these modules builds nothing: ``_build.library()`` runs nvcc
-the first time a kernel is launched.
+``fsk_framing.stage_d_compact``, ``viterbi.decode``,
+``align.aligned_wsum``) and its plain PyTorch version (``*_plain``).  A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel built from ``csrc/`` or raises.  Importing these
+modules builds nothing: ``_build.library(name)`` runs nvcc the first
+time a kernel is launched.
 """

@@ -1,9 +1,11 @@
-"""Build ``csrc/*.cu`` with nvcc into one shared library, load it with ctypes.
+"""Build each ``csrc/*.cu`` with nvcc into its own shared library, load
+it with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so a build
-takes seconds.  It is compiled for ``sm_90a`` at first use into
+The libraries have a plain C interface (no PyTorch headers), so a build
+takes seconds.  Each source is compiled for ``sm_90a`` at first use into
 ``build/kernels/`` beside the package, under a name keyed by a hash of
-the sources and flags, and reused while neither changes.
+that source and the flags, and reused while neither changes.  ``build``
+starts one nvcc per missing library, all at once, and waits for them.
 
 Floating-point flags: no ``--use_fast_math`` (``atan2f``, ``sqrtf`` and
 division stay IEEE) and ``-fmad=false``, so each kernel rounds op for op
@@ -18,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -29,9 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
 
-_lib: Optional[ctypes.CDLL] = None
-# what the last build printed (ptxas register / spill report)
-build_log = ""
+_libs: Dict[str, ctypes.CDLL] = {}
+# what the last build of each source printed (ptxas register / spill
+# report), by kernel name
+build_log: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -48,45 +51,58 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu"))
+def names() -> list:
+    """The kernel sources, by name (``csrc/<name>.cu``)."""
+    return sorted(src.stem for src in CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` for the current source and
+    flags lives."""
+    src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libwam_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"libwam_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is built already; return its path."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
+def build(which: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the libraries of ``which`` (default: every source) that
+    are not built yet, one nvcc each, all started together; return
+    their paths by name."""
+    which = list(names() if which is None else which)
+    paths = {name: library_path(name) for name in which}
+    missing = [name for name, out in paths.items() if not out.exists()]
+    if not missing:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{build_log}")
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for name in missing:
+        out = paths[name]
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{build_log[name]}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
-    return _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first call."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+    return lib
 
 
 def check_cuda(device: torch.device) -> None:
@@ -127,8 +143,10 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """The device address of ``t``; a null pointer for None (a stream
+    the kernel does not store)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream() -> ctypes.c_void_p:

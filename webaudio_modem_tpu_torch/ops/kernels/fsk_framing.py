@@ -208,7 +208,7 @@ def _kernel_coef(params: FSKParams) -> _Coef:
 
 
 def _entry():
-    fn = _build.library().wam_fsk_framing
+    fn = _build.library("fsk_framing").wam_fsk_framing
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci,

@@ -1,7 +1,8 @@
-"""Kernel K1: the demodulator's sequential stage, with the R stream.
+"""Kernel K1: the demodulator's sequential stage, with the R stream
+(and K7, the same stage without R).
 
-Replaces ``webaudio_modem_tpu/ops/pallas/fsk_seq.py`` ``_kernel_r`` (and
-the lax prefix / leftover code around it in
+Replaces ``webaudio_modem_tpu/ops/pallas/fsk_seq.py`` ``_kernel_r`` and
+``_kernel`` (and the lax prefix / leftover code around them in
 ``webaudio_modem_tpu/ops/fsk_demod.py:_sequential_stage``).  Per
 downsample group of ``ratio`` full-rate samples: AGC, band-pass
 biquad, NCO rotation with first-order renormalization, I/Q low-pass
@@ -9,6 +10,14 @@ biquads, 2x average, atan2, wrapped phase difference, post low-pass
 biquad, polarity slicer; plus R, the rolling ds-wide sum of the sliced
 bits, through a ds-deep ring seeded with the last ds bits of the
 previous chunk.
+
+Stream flags, as the reference's ``emit_*`` options: ``emit_bits`` /
+``emit_amps`` drop those planes (``None`` in their slots; no sqrt
+without amps), ``emit_rsum=False`` skips the ring and R (K7, for
+ds > 256 where R is inexact in bf16), and ``emit_csum`` puts the
+INCLUSIVE f32 running sum of the softs in the softs slot, added one
+decision at a time in stream order from 0.  Retained streams are
+bit-identical to the full run.
 
 ``seq`` takes the whole chunk, whatever its length and downsample
 phase: the pending accumulators come in with the state and the
@@ -126,12 +135,13 @@ def _full_rate_step(c, s: _Front, x_t: torch.Tensor, k) -> torch.Tensor:
     return fo
 
 
-def _ds_decision(c, s: _Front, acc: torch.Tensor):
+def _ds_decision(c, s: _Front, acc: torch.Tensor, with_amp: bool):
     """atan2 phase / amplitude, wrapped phase diff, post-LPF, slicer
-    (``fsk_demod._ds_decision``).  Returns (bit f32, amp, soft)."""
+    (``fsk_demod._ds_decision``).  Returns (bit f32, amp or None, soft)."""
     avg = acc / float(c.ratio)
     cur = torch.atan2(avg[1], avg[0])
-    amp = torch.sqrt(avg[0] * avg[0] + avg[1] * avg[1])
+    amp = (torch.sqrt(avg[0] * avg[0] + avg[1] * avg[1]) if with_amp
+           else None)
     diff = cur - s.last_phase
     diff = torch.where(diff > _PI, diff - _TWO_PI,
                        torch.where(diff < -_PI, diff + _TWO_PI, diff))
@@ -145,12 +155,15 @@ def _ds_decision(c, s: _Front, acc: torch.Tensor):
 
 
 def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
-              ds_acc: torch.Tensor, ring0: torch.Tensor, x: torch.Tensor):
+              ds_acc: torch.Tensor, ring0, x: torch.Tensor, *,
+              emit_bits: bool = True, emit_amps: bool = True,
+              emit_csum: bool = False, emit_rsum: bool = True):
     """Plain PyTorch version of ``seq``: the same contract, one sample
     at a time on [B] tensors, accumulating the downsample sums in the
     reference's order (``fsk_demod._sequential_stage``: pending + fi for
     the prefix, fi then + fi for whole groups, 0 + fi for the leftover).
     """
+    flags = (emit_bits, emit_amps, emit_csum, emit_rsum)
     c = _coefs(params)
     dev = x.device
     k = SimpleNamespace(
@@ -164,7 +177,7 @@ def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
     bits, amps, softs = [], [], []
 
     def decide(acc):
-        bit, amp, soft = _ds_decision(c, s, acc)
+        bit, amp, soft = _ds_decision(c, s, acc, emit_amps)
         bits.append(bit)
         amps.append(amp)
         softs.append(soft)
@@ -177,7 +190,7 @@ def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
             t += 1
         if ds_phase + T < ratio:     # still pending
             return (s.pack(), acc) + _planes(params, bits, amps, softs,
-                                             ring0, B, dev)
+                                             ring0, B, dev, flags)
         decide(acc)
     while t + ratio <= T:            # whole groups
         acc = _full_rate_step(c, s, x[t], k)
@@ -190,22 +203,42 @@ def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
         acc = acc + _full_rate_step(c, s, x[t], k)
         t += 1
     return (s.pack(), acc) + _planes(params, bits, amps, softs, ring0, B,
-                                     dev)
+                                     dev, flags)
 
 
-def _planes(params, bits, amps, softs, ring0, B, dev):
-    """Stack the per-group outputs and derive R from the bits: an exact
-    integer cumsum over the ds-deep history followed by the new bits."""
+def csum_strict(softs: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 running sum over the rows, one row at a time from 0
+    (``torch.cumsum`` on float data accumulates in another order: f64 on
+    the CPU, a parallel scan on the card)."""
+    out = torch.empty_like(softs)
+    acc = torch.zeros_like(softs[0]) if len(softs) else None
+    for t in range(softs.shape[0]):
+        acc = acc + softs[t]
+        out[t] = acc
+    return out
+
+
+def _planes(params, bits, amps, softs, ring0, B, dev, flags):
+    """Stack the per-group outputs, keep the requested streams, and
+    derive R from the bits: an exact integer cumsum over the ds-deep
+    history followed by the new bits."""
+    emit_bits, emit_amps, emit_csum, emit_rsum = flags
     ds = params.ds_samples_per_bit
-    if not bits:
-        e = torch.zeros((0, B), dtype=torch.float32, device=dev)
-        return (e.to(torch.bfloat16), e, e.clone(), e.to(torch.bfloat16))
-    bits_f = torch.stack(bits)
-    ext = torch.cat([ring0.to(torch.float32), bits_f])
-    cs = torch.cumsum(ext, 0)
-    rsum = cs[ds:] - cs[:-ds]
-    return (bits_f.to(torch.bfloat16), torch.stack(amps), torch.stack(softs),
-            rsum.to(torch.bfloat16))
+    n = len(bits)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bits_f = torch.stack(bits) if n else torch.zeros((0, B), **f32)
+    amps_t = (torch.stack(amps) if n else torch.zeros((0, B), **f32)) \
+        if emit_amps else None
+    softs_t = torch.stack(softs) if n else torch.zeros((0, B), **f32)
+    if emit_csum:
+        softs_t = csum_strict(softs_t)
+    rsum = None
+    if emit_rsum:
+        ext = torch.cat([ring0.to(torch.float32), bits_f])
+        cs = torch.cumsum(ext, 0)         # integers: exact in any order
+        rsum = (cs[ds:] - cs[:-ds]).to(torch.bfloat16)
+    return (bits_f.to(torch.bfloat16) if emit_bits else None, amps_t,
+            softs_t, rsum)
 
 
 # ---------------------------------------------------------------------------
@@ -235,28 +268,36 @@ def _kernel_coef(params: FSKParams) -> _Coef:
 
 
 def _entry():
-    fn = _build.library().wam_fsk_seq
+    fn = _build.library("fsk_seq").wam_fsk_seq
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                       ctypes.POINTER(_Coef), vp]
+                       ci, ci, ctypes.POINTER(_Coef), vp]
         fn.restype = ci
     return fn
 
 
 def seq(params: FSKParams, ds_phase: int, front: torch.Tensor,
-        ds_acc: torch.Tensor, ring0: torch.Tensor, x: torch.Tensor):
+        ds_acc: torch.Tensor, ring0, x: torch.Tensor, *,
+        emit_bits: bool = True, emit_amps: bool = True,
+        emit_csum: bool = False, emit_rsum: bool = True):
     """Sequential stage over one chunk.
 
     front f32 [20, B], ds_acc f32 [2, B], ring0 bf16 [ds, B] (the last ds
-    sliced bits, oldest first), x f32 [T, B] time-major.  Returns
-    (front', ds_acc', bits bf16, amps f32, softs f32, rsum bf16), the
-    four planes [n, B] with n = (ds_phase + T) // ratio.  rsum[i] is the
-    sum of the ds bits ending at decision i; it is exact for ds <= 256.
+    sliced bits, oldest first; may be None with ``emit_rsum=False``), x
+    f32 [T, B] time-major.  Returns (front', ds_acc', bits bf16, amps
+    f32, softs f32, rsum bf16), the four planes [n, B] with
+    n = (ds_phase + T) // ratio; a dropped stream is None, and with
+    ``emit_csum`` the softs slot holds their inclusive running sum.
+    rsum[i] is the sum of the ds bits ending at decision i; it is exact
+    for ds <= 256.
     """
     global launches
-    if not _build.use_kernel(front, ds_acc, ring0, x):
-        return seq_plain(params, ds_phase, front, ds_acc, ring0, x)
+    flags = dict(emit_bits=emit_bits, emit_amps=emit_amps,
+                 emit_csum=emit_csum, emit_rsum=emit_rsum)
+    operands = (front, ds_acc, x) + ((ring0,) if emit_rsum else ())
+    if not _build.use_kernel(*operands):
+        return seq_plain(params, ds_phase, front, ds_acc, ring0, x, **flags)
     T, B = x.shape
     ds = params.ds_samples_per_bit
     if not 0 <= ds_phase < params.downsample_ratio:
@@ -264,21 +305,26 @@ def seq(params: FSKParams, ds_phase: int, front: torch.Tensor,
     _build.check(x, "x", torch.float32, (None, B))
     _build.check(front, "front", torch.float32, (N_FRONT, B))
     _build.check(ds_acc, "ds_acc", torch.float32, (2, B))
-    _build.check(ring0, "ring0", torch.bfloat16, (ds, B))
+    if emit_rsum:
+        _build.check(ring0, "ring0", torch.bfloat16, (ds, B))
     n = n_decisions(params, ds_phase, T)
     new = dict(device=x.device)
     front_out = torch.empty((N_FRONT, B), dtype=torch.float32, **new)
     acc_out = torch.empty((2, B), dtype=torch.float32, **new)
-    bits = torch.empty((n, B), dtype=torch.bfloat16, **new)
-    amps = torch.empty((n, B), dtype=torch.float32, **new)
-    softs = torch.empty((n, B), dtype=torch.float32, **new)
-    rsum = torch.empty((n, B), dtype=torch.bfloat16, **new)
+
+    def plane(keep, dtype):
+        return torch.empty((n, B), dtype=dtype, **new) if keep else None
+
+    bits = plane(emit_bits, torch.bfloat16)
+    amps = plane(emit_amps, torch.float32)
+    softs = plane(True, torch.float32)
+    rsum = plane(emit_rsum, torch.bfloat16)
     p = _build.ptr
     with torch.cuda.device(x.device):
         err = _entry()(p(x), T, B, p(front), p(front_out), p(ds_acc),
                        p(acc_out), p(ring0), ds_phase, p(bits), p(amps),
-                       p(softs), p(rsum), ctypes.byref(_kernel_coef(params)),
-                       _build.stream())
+                       p(softs), p(rsum), int(emit_csum), int(emit_rsum),
+                       ctypes.byref(_kernel_coef(params)), _build.stream())
     _build.raise_on_error(err, "fsk_seq")
     launches += 1
     return front_out, acc_out, bits, amps, softs, rsum

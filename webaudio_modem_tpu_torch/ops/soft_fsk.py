@@ -1,0 +1,467 @@
+"""Soft-decision FSK + FEC farm path — PyTorch port.
+
+Counterpart of ``webaudio_modem_tpu/ops/soft_fsk.py`` for the farm
+decode (``decode_frames_batch`` / ``decode_frames_batch_async``, the
+path of ``bench.py --family soft``) and the frame builders:
+
+  TX  ``encode_frames_batch``: payloads -> [LEN+CRC | payload+CRC]
+      frames, convolutionally coded (rate 1/2, K=7, ``ops/fec.py``),
+      after the preamble+SFD pattern -> phase-continuous FSK, one
+      synthesis on the device.
+  RX  ``_decode_frames_fused``, one pass over the batch on the device:
+      1. K1 (``ops/kernels/fsk_seq.py``) with the bit and amp streams
+         dropped and the softs slot holding their inclusive f32 running
+         sum (``emit_csum``), plus R;
+      2. the sync peak from R (``fsk_demod._sync_ratios_from_r``), the
+         header LLR windows at every grid offset around it (K4 at
+         stride 1, ``ops/kernels/align.py``), top-k pruning by the
+         windowed-|LLR| score, and ONE batched Viterbi over the B x k
+         candidates (K3, ``ops/kernels/viterbi.py``);
+      3. ``_select_candidate``: the first candidate whose header CRC and
+         LEN pass;
+      4. the body LLR windows at each channel's chosen grid (K4 at
+         stride ds) and ONE batched Viterbi over the B bodies (K3);
+      5. ``_pack_bodies``: the body CRC gate and one [B, payload + 1]
+         uint8 plane (payload bytes + ok flag).
+      Nothing in it waits for the device: no ``.item()``, no branch on
+      a tensor, no copy to the host before the packed plane.
+
+The Reed-Solomon outer code (``rs_parity``) and the block body codes
+(``body_code``) belong to slice E of the port (ROADMAP queue 1, item
+14) and raise ``NotImplementedError``; the streaming
+``SoftFrameDecoder`` and ``decode_frame_signal`` come later (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from webaudio_modem_tpu_torch.models.config import FSKParams
+from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod
+from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq
+from webaudio_modem_tpu_torch.utils.crc16 import CRC16, TABLE
+from webaudio_modem_tpu_torch.utils.device import resolve_device
+from webaudio_modem_tpu_torch.utils.trace import metrics
+
+HEADER_PLAIN = fec.FRAME_HEADER_PLAIN  # LEN(2) + CRC16(LEN)
+HEADER_CODED_BITS = 2 * (8 * HEADER_PLAIN + fec.K - 1)
+
+# Header-grid candidates per channel that survive the alignment score
+# and reach the candidate Viterbi (the reference's HEADER_TOP_K: the
+# best-scoring decodable offset ranks <= 7 near the decode cliff, so
+# top-8 keeps frame success of the full grid).
+HEADER_TOP_K = 8
+
+
+def _body_coded_bits(payload_len: int, rs_parity: int = 0,
+                     body_code=None) -> int:
+    if body_code is not None:
+        n_cw = -(-8 * (payload_len + 2) // body_code.k)
+        return n_cw * body_code.n
+    return 2 * (8 * (payload_len + 2 + rs_parity) + fec.K - 1)
+
+
+def _check_rs(payload_len: int, rs_parity: int, body_code=None) -> None:
+    """The reference's validation of the body-code options; then, for
+    any option the port does not run yet, ``NotImplementedError``."""
+    if body_code is not None and rs_parity:
+        raise ValueError("rs_parity is the concatenated mode of the "
+                         "convolutional body code; it cannot combine "
+                         "with an alternate body_code")
+    if rs_parity:
+        if rs_parity % 2 or rs_parity < 2:
+            raise ValueError(
+                f"rs_parity must be even >= 2, got {rs_parity}")
+        if payload_len + 2 + rs_parity > 255:
+            raise ValueError(
+                f"RS codeword {payload_len + 2 + rs_parity} bytes exceeds "
+                "255; shorten the payload or the parity")
+    if rs_parity or body_code is not None:
+        raise NotImplementedError(
+            "rs_parity / body_code: the Reed-Solomon outer code and the "
+            "LDPC / turbo body codes are ported in slice E (ROADMAP "
+            "queue 1, item 14)")
+
+
+# ---------------------------------------------------------------------------
+# TX
+# ---------------------------------------------------------------------------
+
+def encode_frame_signal(params: FSKParams, payload: bytes,
+                        rs_parity: int = 0, body_code=None,
+                        device="cuda") -> np.ndarray:
+    """payload -> FSK signal carrying a coded frame (float32 numpy [T])."""
+    payload = bytes(payload)
+    _check_rs(len(payload), rs_parity, body_code)
+    body = fec.build_frame_body(payload)
+    coded = np.concatenate([
+        fec.conv_encode_bits(fec.bytes_to_bits(
+            fec.build_frame_header(len(payload)))),
+        fec.conv_encode_bits(fec.bytes_to_bits(body))])
+    bits = np.concatenate([np.asarray(params.pattern_bits, np.int8),
+                           coded.astype(np.int8)])
+    return fsk_mod.modulate_bits(params, bits, resolve_device(device))
+
+
+def encode_frames_batch(params: FSKParams, payloads, rs_parity: int = 0,
+                        body_code=None, device="cuda") -> torch.Tensor:
+    """Equal-length payloads -> FSK signals f32 [B, T] on ``device``, one
+    synthesis.  Same frame layout as ``encode_frame_signal`` (sync
+    pattern + coded header + coded body, lead/trail padding); framing
+    and the exact integer phase prefix run on the host (vectorized conv
+    encode and CRC), the sine expansion on the device, as
+    ``fsk_mod.modulate_batch``."""
+    payloads = [bytes(p) for p in payloads]
+    if not payloads:
+        raise ValueError("encode_frames_batch requires >= 1 payload")
+    if len({len(p) for p in payloads}) != 1:
+        raise ValueError("encode_frames_batch requires equal-length "
+                         "payloads")
+    _check_rs(len(payloads[0]), rs_parity, body_code)
+    device = resolve_device(device)
+    B = len(payloads)
+    hdr_coded = fec.conv_encode_bits(fec.bytes_to_bits(
+        fec.build_frame_header(len(payloads[0])))).astype(np.int8)
+    pl = len(payloads[0])
+    pay = np.frombuffer(b"".join(payloads), np.uint8).reshape(B, pl)
+    crcs = CRC16.calculate_rows(pay)
+    body_bytes = np.concatenate(
+        [pay, (crcs >> 8).astype(np.uint8)[:, None],
+         (crcs & 0xFF).astype(np.uint8)[:, None]], axis=1)
+    body_coded = fec.conv_encode_bits_batch(
+        np.unpackbits(body_bytes, axis=1)).astype(np.int8)
+    pattern = np.asarray(params.pattern_bits, np.int8)
+    bits = np.concatenate([
+        np.broadcast_to(pattern, (B, pattern.shape[0])),
+        np.broadcast_to(hdr_coded, (B, hdr_coded.shape[0])),
+        body_coded], axis=1)
+    return fsk_mod.synth_bits_batch(params, bits, params.samples_per_bit * 2,
+                                    device)
+
+
+def frame_signal_length(params: FSKParams, payload_len: int,
+                        rs_parity: int = 0, body_code=None) -> int:
+    _check_rs(payload_len, rs_parity, body_code)
+    n_bits = (len(params.pattern_bits) + HEADER_CODED_BITS
+              + _body_coded_bits(payload_len, rs_parity, body_code))
+    return (n_bits * params.samples_per_bit
+            + 2 * params.samples_per_bit
+            + params.bits_per_byte * params.samples_per_bit)
+
+
+# ---------------------------------------------------------------------------
+# RX stages
+# ---------------------------------------------------------------------------
+
+def _grid_offsets(params: FSKParams) -> np.ndarray:
+    """The header-start search grid around the correlation peak (+1):
+    consecutive integer offsets spanning one bit period plus a quarter
+    bit of slack each side."""
+    ds = params.ds_samples_per_bit
+    return np.arange(-ds - ds // 4, ds // 4 + 1)
+
+
+def _header_window(params: FSKParams, n_ds: int, t_peak: torch.Tensor):
+    """K4's arguments for the header windows over an [n_ds, B] csum
+    plane: every (offset, grid bit) read of the candidates lands in one
+    window per channel that starts at the lowest grid offset, with
+    ``pad_lo`` zero rows absorbing grids that reach below the stream
+    start.  Returns (base [B] int32, the largest base, the keyword
+    arguments of ``align.aligned_wsum``)."""
+    ds = params.ds_samples_per_bit
+    offsets = _grid_offsets(params)
+    pad_lo = -int(offsets[0])
+    n_out = len(offsets) + (HEADER_CODED_BITS - 1) * ds + 1
+    max_base = max(pad_lo + (n_ds + 1 - ds) - n_out, 0)
+    base = torch.clamp(t_peak + 1, 0, max_base).to(torch.int32)
+    return base, max_base, dict(n_out=n_out, ds=ds, stride=1, pad_lo=pad_lo,
+                                polarity=params.polarity, virt0=True)
+
+
+def _body_window(params: FSKParams, n_ds: int, b_starts: torch.Tensor,
+                 payload_len: int):
+    """K4's arguments for the body windows at each channel's grid start;
+    starts past the stream clip to the last full window (those channels
+    are masked later).  Returns (base, the largest base, keywords) as
+    ``_header_window``."""
+    ds = params.ds_samples_per_bit
+    body_bits = _body_coded_bits(payload_len)
+    span = (body_bits - 1) * ds + 1
+    max_base = max(n_ds + 1 - ds - span, 0)        # virtual zero row
+    base = torch.clamp(b_starts, 0, max_base).to(torch.int32)
+    return base, max_base, dict(n_out=body_bits, ds=ds, stride=ds, pad_lo=0,
+                                polarity=params.polarity, virt0=True)
+
+
+def _header_llrs(params: FSKParams, csum: torch.Tensor,
+                 t_peak: torch.Tensor, gate: torch.Tensor,
+                 body_bits_n: int):
+    """The header-candidate LLR windows: grid starts around ``t_peak``
+    ([B] int), one aligned window per channel (K4 at stride 1 over the
+    inclusive cumsum ``csum`` [n_ds, B]), the per-offset LLRs as strided
+    reads of it, and pruning to the ``HEADER_TOP_K`` best by the
+    alignment-coherence score sum_j |llr[o, j]| (invalid candidates rank
+    last; ties keep the lower offset, as the reference's iterative
+    argmax).
+
+    Returns (starts [B, n_sel] int64, llrs [B, n_sel, HEADER_CODED_BITS]
+    f32, valid [B, n_sel] bool), candidates in descending score order
+    when pruned (grids of HEADER_TOP_K offsets or fewer are kept
+    whole)."""
+    ds = params.ds_samples_per_bit
+    h_bits = HEADER_CODED_BITS
+    grid = _grid_offsets(params)
+    n_off = len(grid)
+    n_ds = csum.shape[0]
+    dev = csum.device
+    # made on the device: a copy from host memory would wait for the stream
+    offsets = torch.arange(int(grid[0]), int(grid[-1]) + 1, device=dev)
+
+    starts = t_peak.to(torch.int64)[:, None] + 1 + offsets[None, :]
+    valid = ((starts >= 0) & (starts + h_bits * ds <= n_ds)
+             & gate[:, None]
+             & (starts + (h_bits + body_bits_n) * ds <= n_ds))
+
+    # align one window per channel, then the candidates are static
+    # strided reads of it
+    base, _, kw = _header_window(params, n_ds, t_peak)
+    al = align.aligned_wsum(csum, base, **kw)
+    rows = (torch.arange(n_off, device=dev)[:, None]
+            + ds * torch.arange(h_bits, device=dev)[None, :])
+    llrs = al[rows].permute(2, 0, 1)               # [B, n_off, h_bits]
+
+    if HEADER_TOP_K < n_off:
+        score = llrs.abs().sum(-1)                  # [B, n_off]
+        score = torch.where(valid, score,
+                            torch.full_like(score, float("-inf")))
+        picks = []
+        for _ in range(HEADER_TOP_K):
+            idx = torch.argmax(score, dim=-1)       # first maximum
+            picks.append(idx)
+            score = score.scatter(
+                1, idx[:, None], torch.full_like(score[:, :1],
+                                                 float("-inf")))
+        sel = torch.stack(picks, 1)                  # [B, k]
+        # exact selection by index: no LLR passes through a matmul
+        llrs = torch.take_along_dim(llrs, sel[..., None], dim=1)
+        starts = torch.take_along_dim(starts, sel, dim=1)
+        valid = torch.take_along_dim(valid, sel, dim=1)
+    return starts, llrs, valid
+
+
+def _candidate_headers(params: FSKParams, csum: torch.Tensor,
+                       t_peak: torch.Tensor, gate: torch.Tensor,
+                       body_bits_n: int):
+    """``_header_llrs`` then ONE batched Viterbi over the surviving
+    (channel x offset) candidates.  Returns (starts, headers [B, n_sel,
+    32] uint8, valid)."""
+    starts, llrs, valid = _header_llrs(params, csum, t_peak, gate,
+                                       body_bits_n)
+    B, n_sel, h_bits = llrs.shape
+    headers = fec._viterbi_core(
+        llrs.reshape(B * n_sel, h_bits // 2, 2),
+        8 * HEADER_PLAIN).reshape(B, n_sel, 8 * HEADER_PLAIN)
+    return starts, headers, valid
+
+
+def _sync_peak(params: FSKParams, rsum: torch.Tensor):
+    """Sync match ratios from R (a zero carried tail: a one-shot
+    decode's all-zero window prefix), their first maximum t_peak [B] and
+    whether it clears the sync threshold."""
+    ds = params.ds_samples_per_bit
+    W = params.sync_window
+    B = rsum.shape[1]
+    ratios = fsk_demod._sync_ratios_from_r(
+        params, torch.zeros((W - ds, B), dtype=rsum.dtype,
+                            device=rsum.device), rsum)
+    t_peak = torch.argmax(ratios, dim=0)            # first maximum
+    peak = torch.take_along_dim(ratios, t_peak[None, :], dim=0)[0]
+    threshold = float(np.float32(params.config.sync_threshold))
+    return t_peak, peak > threshold
+
+
+def _batch_header_stage(params: FSKParams, csum: torch.Tensor,
+                        rsum: torch.Tensor, body_bits_n: int):
+    """Sync peak + header-candidate selection + ONE batched Viterbi.
+    ``csum`` is K1's inclusive cumsum of the softs [n_ds, B], ``rsum``
+    its R stream.  Returns (starts, headers, valid)."""
+    t_peak, peak_ok = _sync_peak(params, rsum)
+    return _candidate_headers(params, csum, t_peak, peak_ok, body_bits_n)
+
+
+def _body_llrs(params: FSKParams, csum: torch.Tensor,
+               b_starts: torch.Tensor, payload_len: int) -> torch.Tensor:
+    """Body LLR windows [body_bits, B] at each channel's grid start (K4
+    at stride ds over the inclusive cumsum)."""
+    base, _, kw = _body_window(params, csum.shape[0], b_starts, payload_len)
+    return align.aligned_wsum(csum, base, **kw)
+
+
+def _batch_body_stage(params: FSKParams, csum: torch.Tensor,
+                      b_starts: torch.Tensor,
+                      payload_len: int) -> torch.Tensor:
+    """Body LLR windows + ONE batched Viterbi over the B bodies ->
+    decoded body bits [B, 8 * (payload_len + 2)] uint8."""
+    b_llr = _body_llrs(params, csum, b_starts, payload_len)
+    B = b_llr.shape[1]
+    return fec._viterbi_core(b_llr.t().reshape(B, -1, 2),
+                             8 * (payload_len + 2))
+
+
+def _select_candidate(headers: torch.Tensor, starts: torch.Tensor,
+                      valid: torch.Tensor, payload_len: int):
+    """LEN/CRC header selection over the candidate axis.
+
+    Candidates must pass their own CRC16 and carry LEN == ``payload_len``.
+    Returns (found [B] bool, st [B] int64 — the chosen candidate's grid
+    start); the first passing candidate wins."""
+    hb = headers.to(torch.int32)                      # [B, n_sel, 32]
+    w16 = 1 << torch.arange(15, -1, -1, dtype=torch.int32,
+                            device=hb.device)
+    ln = (hb[..., :16] * w16).sum(-1)
+    crc = (hb[..., 16:32] * w16).sum(-1)
+    ok = (valid & (_crc16_bits_device(hb[..., :16]) == crc)
+          & (ln == payload_len))
+    found = ok.any(1)
+    chosen = torch.argmax(ok.to(torch.int32), dim=1)  # first True
+    st = torch.take_along_dim(starts, chosen[:, None], dim=1)[:, 0]
+    return found, st
+
+
+def _pack_bodies(bodies: torch.Tensor, payload_len: int,
+                 found: torch.Tensor) -> torch.Tensor:
+    """Body CRC gate + packing: decoded body bits [B, 8*(payload_len+2)]
+    -> ONE [B, payload_len + 1] uint8 plane (payload bytes + ok flag),
+    ok = ``found`` AND the CRC16 over the payload bytes matches the
+    frame's trailing CRC bytes."""
+    B = bodies.shape[0]
+    bi = bodies.to(torch.int32)
+    w8 = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=bi.device)
+    body_bytes = (bi.reshape(B, payload_len + 2, 8) * w8).sum(-1)
+    bcrc = (body_bytes[:, payload_len] << 8) | body_bytes[:, payload_len + 1]
+    body_ok = found & (_crc16_bits_device(bi[:, :8 * payload_len]) == bcrc)
+    packed = torch.cat([body_bytes[:, :payload_len],
+                        body_ok[:, None].to(torch.int32)], dim=1)
+    return packed.to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _crc_table(device: torch.device) -> torch.Tensor:
+    """The CRC16 table on ``device``, copied there once (a copy from host
+    memory waits for the stream)."""
+    return torch.tensor(TABLE, dtype=torch.int32, device=device)
+
+
+def _crc16_bits_device(bits: torch.Tensor) -> torch.Tensor:
+    """CRC-16-CCITT-FALSE over an MSB-first bit stream, on the tensor's
+    device: bits [..., n] 0/1 -> crc [...] int32.  Whole bytes go
+    through the 256-entry table recurrence (a per-lane gather is native
+    on the card), a tail of fewer than 8 bits through the bit-serial
+    shift/XOR form (poly 0x1021, init 0xFFFF)."""
+    b = bits.to(torch.int32)
+    n = b.shape[-1]
+    crc = torch.full(b.shape[:-1], 0xFFFF, dtype=torch.int32,
+                     device=b.device)
+    n_bytes = n // 8
+    if n_bytes:
+        table = _crc_table(b.device)
+        w8 = 1 << torch.arange(7, -1, -1, dtype=torch.int32,
+                               device=b.device)
+        byts = (b[..., :8 * n_bytes].reshape(b.shape[:-1] + (n_bytes, 8))
+                * w8).sum(-1)
+        for j in range(n_bytes):
+            idx = ((crc >> 8) ^ byts[..., j]) & 0xFF
+            crc = ((crc << 8) & 0xFFFF) ^ table[idx.to(torch.int64)]
+    for j in range(8 * n_bytes, n):
+        msb = (crc >> 15) & 1
+        crc = ((crc << 1) & 0xFFFF) ^ ((msb ^ b[..., j]) * 0x1021)
+    return crc
+
+
+# ---------------------------------------------------------------------------
+# RX entry points
+# ---------------------------------------------------------------------------
+
+def _decode_frames_fused(params: FSKParams, samples: torch.Tensor,
+                         payload_len: int) -> torch.Tensor:
+    """The whole farm decode on the samples' device: f32 [B, T] ->
+    packed [B, payload_len + 1] uint8 (payload bytes + ok flag column).
+    K1 once, K4 twice, K3 twice; no host sync."""
+    B = samples.shape[0]
+    ds = params.ds_samples_per_bit
+    state = fsk_demod.init_state(params, B, samples.device)
+    # only the softs' prefix sum and R are read: K1 drops the bit and amp
+    # streams and stores the inclusive cumsum in the softs slot
+    _, _, _, _, csum, rsum = fsk_seq.seq(
+        params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
+        samples.t().contiguous(), emit_bits=False, emit_amps=False,
+        emit_csum=True)
+    starts, headers, valid = _batch_header_stage(
+        params, csum, rsum, _body_coded_bits(payload_len))
+    found, st = _select_candidate(headers, starts, valid, payload_len)
+    b_starts = torch.where(found, st + HEADER_CODED_BITS * ds,
+                           torch.zeros_like(st))
+    bodies = _batch_body_stage(params, csum, b_starts, payload_len)
+    return _pack_bodies(bodies, payload_len, found)
+
+
+def decode_frames_batch(params: FSKParams, samples, payload_len: int,
+                        rs_parity: int = 0, body_code=None,
+                        device="cuda") -> list:
+    """Farm-scale soft decode: [B, T] signals -> list of payloads (None
+    per channel that failed).  All channels carry frames of the same
+    payload length.  ``samples`` (numpy or a tensor) is moved to
+    ``device`` (the card unless the caller asks for the CPU)."""
+    return decode_frames_batch_async(params, samples, payload_len,
+                                     rs_parity, body_code, device)()
+
+
+def decode_frames_batch_async(params: FSKParams, samples,
+                              payload_len: int, rs_parity: int = 0,
+                              body_code=None, device="cuda"):
+    """Pipelined form of ``decode_frames_batch``: enqueues the decode,
+    starts the copy of the packed plane into pinned host memory, records
+    an event, and returns a zero-argument finalizer that waits on that
+    event and builds the payload list.  A server draining a stream of
+    batches enqueues batch t+1 before finalizing batch t::
+
+        pending = [decode_frames_batch_async(params, s, n) for s in xs]
+        results = [p() for p in pending]
+    """
+    _check_rs(payload_len, rs_parity, body_code)
+    if not isinstance(samples, torch.Tensor):
+        samples = torch.tensor(np.asarray(samples, np.float32))
+    x = samples.to(device=resolve_device(device), dtype=torch.float32)
+    B, T = x.shape
+    # the seq stage at phase 0 emits T // 2 downsampled steps
+    if T // params.downsample_ratio < \
+            HEADER_CODED_BITS * params.ds_samples_per_bit:
+        # too short to hold even one coded header span
+        return lambda: [None] * B
+
+    packed_dev = _decode_frames_fused(params, x, payload_len)
+    if packed_dev.is_cuda:
+        packed = torch.empty(packed_dev.shape, dtype=torch.uint8,
+                             pin_memory=True)
+        packed.copy_(packed_dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    else:
+        packed, done = packed_dev, None
+
+    def finalize():
+        if done is not None:
+            done.synchronize()
+        plane = packed.numpy()
+        results = [None] * B
+        ok = np.nonzero(plane[:, payload_len])[0]
+        for b in ok:
+            results[b] = bytes(plane[b, :payload_len])
+        metrics.incr("soft.frames_decoded", len(ok))
+        metrics.incr("soft.frames_failed", B - len(ok))
+        return results
+
+    return finalize

@@ -1,8 +1,9 @@
 """The CUDA device, or an error.
 
-Counterpart of ``webaudio_modem_tpu/utils/platform.py``.  The port
-never selects a device by itself: callers pass ``device=`` explicitly,
-and a measurement or smoke run that needs the card calls
+Counterpart of ``webaudio_modem_tpu/utils/platform.py``.  The port's
+entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU; ``resolve_device`` refuses a CUDA request where there is
+no card, and a measurement or smoke run that needs the card calls
 ``require_cuda`` and fails where there is none.
 """
 
@@ -28,6 +29,17 @@ def gpu_name_and_power() -> str:
     except (subprocess.SubprocessError, OSError) as exc:
         return f"nvidia-smi failed: {exc}"
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises ``RuntimeError`` for a CUDA
+    device when PyTorch sees no card (there is no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return device
 
 
 def require_cuda() -> Tuple[torch.device, str]:
