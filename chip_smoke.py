@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the hand-written kernels,
+Drives the port's three main paths through the hand-written kernels,
 which it builds with nvcc first (one nvcc per source, all at once):
 
   * streaming hard-decision FSK demodulation of thousands of channels
@@ -12,7 +12,10 @@ which it builds with nvcc first (one nvcc per source, all at once):
     (``csrc/fsk_framing.cu``);
   * the farm soft-FEC frame decode (1200 baud, 16-byte payloads at
     8 dB, ``soft_fsk.decode_frames_batch``): K1 in its csum mode, K4
-    (``csrc/align.cu``) and K3 (``csrc/viterbi.cu``).
+    (``csrc/align.cu``) and K3 (``csrc/viterbi.cu``);
+  * streaming DBPSK demodulation of thousands of channels (1200 baud,
+    1800 Hz carrier, 48 kHz, 0.1 s chunks, ``bench.py --family psk``):
+    K6 (``csrc/psk_seq.cu``) and K2.
 
 Phases:
 
@@ -32,13 +35,26 @@ Phases:
      held against a strict f32 loop over the full run's softs), K4 at
      the header and body windows and at the extreme bases, K3 at the
      header, body and a payload-100 trellis; K7 (K1 without R) at
-     50 baud (ds = 480), and 50-baud streams decoding exactly;
+     50 baud (ds = 480), timed beside its plain version, and 50-baud
+     streams decoding exactly;
   7. the soft main path: 2048 distinct random payloads at 8 dB decode
      exactly with 1 / 2 / 2 launches of K1 / K4 / K3, and an erased
      channel decodes to None;
   8. soft timings at B=2048 and 4096 (per decode, realtime channels,
      each kernel beside its plain version and, for K4, torch.gather),
-     peak device memory, and a torch.profiler breakdown.
+     peak device memory, and a torch.profiler breakdown;
+  9. K6 against its plain version on the card at B=2048: noisy DBPSK
+     chunks of distinct messages with state carried over three chunks,
+     one of odd length (a ds_phase prefix); K6 without R at 50 baud
+     (D = 480, rings in shared memory) and at 50 baud and 96 kHz
+     (D = 960, rings in device memory);
+ 10. the DBPSK main path: ModemFarm(PSKConfig(), batch=4096) decodes 4096
+     distinct 13-byte messages exactly, counting launches; PSKCore
+     round-trips b"Hello, World!"; the signal quality is finite;
+ 11. DBPSK timings: demod_chunk per chunk at B=2048 and 4096 (and its
+     plain version once), K6 beside its plain version and its bound at
+     D = 20, 480 and 960, and K6's ring placement timed in turns against
+     a copy built with its rings in device memory at every D.
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
 CUDA device it fails in phase 1 and prints no result.  The line before
@@ -77,6 +93,9 @@ F32_OPS_PER_S = 67e12
 # output (a subtract and the +-1 multiply)
 K1_OPS_PER_SAMPLE = 54
 K1_OPS_PER_DECISION = 40
+# K6: K1's front end per sample, and ~39 per decision (two divides, re and
+# im 6, atan2f counted as 20, sign and wrap 4, slicer 1, amplitude 4, R 2)
+K6_OPS_PER_DECISION = 39
 K2_OPS_PER_STEP = 40
 K3_OPS_PER_STEP = 256
 K3_OPS_PER_NORM = 128
@@ -575,6 +594,13 @@ def phase_soft_kernels_vs_plain(device, rng):
             _equal_or_raise(f"K7 {name} vs full run", a, f)
     print(f"  K7 (emit_rsum=False) ds={ds50} T={CHUNK} B={B}: identical to "
           "plain and to the full run's streams")
+    n = k[4].shape[0]
+    k7 = _timing(f"ds={ds50} T={CHUNK} B={B}, emit_rsum=False",
+                 _cuda_ms(lambda: fsk_seq.seq(*args, emit_rsum=False), 20),
+                 _cuda_ms(lambda: fsk_seq.seq_plain(*args, emit_rsum=False),
+                          1),
+                 _nbytes(*args[2:4], x, *k),
+                 CHUNK * B * K1_OPS_PER_SAMPLE + n * B * K1_OPS_PER_DECISION)
     farm = ModemFarm(p50.config, B, device=device)
     sig = farm.modulate(msgs)
     n_chunks = -(-sig.shape[1] // CHUNK)
@@ -585,7 +611,7 @@ def phase_soft_kernels_vs_plain(device, rng):
           f"{n_chunks} chunks, {fsk_seq.launches - before} K7 launches")
     if exact != B or fsk_seq.launches - before != n_chunks:
         raise RuntimeError("50-baud decode through K7 failed")
-    return {name: max(v) for name, v in errs.items()}
+    return {name: max(v) for name, v in errs.items()}, k7
 
 
 def phase_soft_main_path(device, rng):
@@ -621,22 +647,19 @@ def phase_soft_main_path(device, rng):
     return launches
 
 
-def _profile_decode(params, noisy, wall_ms, card):
-    """torch.profiler over 3 decodes: device time by kernel, and the
-    device's busy share of ``wall_ms``, the unprofiled per-decode wall
-    time (the profiler's own host cost would dilute it)."""
+def _profile(label, run, calls, wall_ms, card):
+    """torch.profiler over ``run()``, which makes ``calls`` calls: device
+    time per call by kernel, and the device's busy share of ``wall_ms``,
+    the unprofiled time per call (the profiler's own host cost would
+    dilute it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from webaudio_modem_tpu_torch.ops import soft_fsk
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
-                                         device=noisy.device)
+        run()
         torch.cuda.synchronize()
 
     def dev_us(ev):
@@ -654,13 +677,13 @@ def _profile_decode(params, noisy, wall_ms, card):
     if not rows:
         print("  profile: the profiler recorded no device time")
         return
-    total_ms = sum(r[0] for r in rows) / 1e3 / 3
-    print(f"  profile B={noisy.shape[0]}: device {total_ms:.3f} ms per "
-          f"decode, busy {100 * total_ms / wall_ms:.1f} % of the "
-          f"{wall_ms:.3f} ms pipelined wall [{card}]")
+    total_ms = sum(r[0] for r in rows) / 1e3 / calls
+    print(f"  profile {label}: device {total_ms:.3f} ms per call, busy "
+          f"{100 * total_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms "
+          f"unprofiled time per call [{card}]")
     for us, key, count in rows[:12]:
-        print(f"    {us / 1e3 / 3:8.4f} ms/decode  {count // 3:4d} calls  "
-              f"{key[:70]}")
+        print(f"    {us / 1e3 / calls:8.4f} ms/call  {count // calls:4d} "
+              f"launches  {key[:70]}")
 
 
 def phase_soft_timings(device, rng, card):
@@ -755,10 +778,283 @@ def phase_soft_timings(device, rng, card):
             if isinstance(t, dict) and "shape" in t:
                 _print_timing(name, t, card)
         try:
-            _profile_decode(params, noisy, wall_ms, card)
+            _profile(f"soft decode B={B}", lambda: [
+                soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
+                                             device=device)
+                for _ in range(3)], 3, wall_ms, card)
         except RuntimeError as exc:     # a measurement, not a check
             print(f"  profile: torch.profiler failed: {exc}")
     return timings
+
+
+# ---------------------------------------------------------------------------
+# The DBPSK path
+# ---------------------------------------------------------------------------
+
+# K6 keeps its I/Q rings in shared memory up to D = 908 and in device
+# memory beyond: D = 960 (50 baud at 96 kHz) holds the device placement
+PSK_DEVICE_RING_CONFIG = dict(sample_rate=96000, baud_rate=50)
+
+
+def _psk_params(**overrides):
+    from webaudio_modem_tpu_torch.models.psk import (PSKConfig,
+                                                     params_from_config)
+
+    return params_from_config(PSKConfig(**overrides))
+
+
+def _psk_args(state, ds_phase, x, emit_rsum):
+    D = state.ring.shape[0] // 2
+    return (ds_phase, state.front, state.ds_acc, state.ring,
+            state.bit_tail[-D:] if emit_rsum else None, x)
+
+
+def _check_k6(params, state, ds_phase, x, errs, emit_rsum=True):
+    """K6 vs plain on identical inputs: bits, rsum and rings exact; amps,
+    softs, front and ds_acc within ATOL (and the report says whether
+    they are exact)."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import psk_seq
+
+    args = (params, *_psk_args(state, ds_phase, x, emit_rsum))
+    p = psk_seq.seq_plain(*args, emit_rsum=emit_rsum)
+    k = psk_seq.seq(*args, emit_rsum=emit_rsum)
+    torch.cuda.synchronize()
+    names = ("front", "ds_acc", "ring", "bits", "amps", "softs", "rsum")
+    parts = {}
+    for name, a, b in zip(names, k, p):
+        if name in ("ring", "bits", "rsum"):
+            errs.append(_equal_or_raise(f"K6 {name}", a, b))
+            continue
+        if a.shape != b.shape:
+            raise RuntimeError(f"K6 {name}: shape {a.shape} vs {b.shape}")
+        parts[name] = float((a - b).abs().max()) if a.numel() else 0.0
+    err = max(parts.values())
+    errs.append(err)
+    if err > ATOL:
+        raise RuntimeError(f"K6 vs plain: max abs err {parts} > {ATOL}")
+    inexact = ", ".join(sorted(n for n, e in parts.items() if e > 0))
+    D = params.ds_samples_per_bit
+    exact = "bits, rings" + (", rsum" if emit_rsum else "")
+    print(f"  K6 T={x.shape[0]} ds_phase={ds_phase} D={D} R={emit_rsum} "
+          f"(rings in {'device' if D > 908 else 'shared'} memory): {exact} "
+          f"exact; max abs err {err:.3g} "
+          f"({'inexact: ' + inexact if inexact else 'all exact'})")
+
+
+def phase_psk_kernels_vs_plain(device, rng):
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import psk
+
+    errs = []
+    params = _psk_params()
+    msgs = _messages(rng, CHECK_BATCH, 13)
+    # half a chunk of silence first: the 0.14 s messages then span the
+    # first two chunks, and the third holds their end of data
+    sig = torch.nn.functional.pad(psk.modulate_batch(params, msgs, device),
+                                  (CHUNK // 2, 3 * CHUNK))[:, :3 * CHUNK]
+    x_all = _awgn(sig, 20.0, rng, device)
+    state = psk.init_state(params, CHECK_BATCH, device)
+    ds_phase, start = 0, 0
+    for T in (CHUNK, CHUNK - 1, CHUNK):   # the odd chunk leaves a prefix
+        x = x_all[:, start:start + T]
+        _check_k6(params, state, ds_phase, x.t().contiguous(), errs)
+        state, _ = psk.demod_chunk(params, ds_phase, state, x)
+        ds_phase = (ds_phase + T) % params.downsample_ratio
+        start += T
+    syncs = torch.bincount(state.sync_count.long().cpu(), minlength=3)
+    print(f"  channels by syncs over the three chunks (0, 1, 2+): "
+          f"{syncs[0]}, {syncs[1]}, {syncs[2:].sum()}")
+
+    # K6 without R: D = 480 (50 baud, rings in shared memory) and D = 960
+    # (50 baud at 96 kHz, rings in device memory), on a chunk inside the
+    # message after three carried ones
+    for p50 in (_psk_params(baud_rate=50),
+                _psk_params(**PSK_DEVICE_RING_CONFIG)):
+        msgs = _messages(rng, CHECK_BATCH, 4)
+        sig = psk.modulate_batch(p50, msgs, device)[:, :4 * CHUNK]
+        state = psk.init_state(p50, CHECK_BATCH, device)
+        state, _ = psk.demod_chunk(p50, 0, state, sig[:, :3 * CHUNK])
+        x = _awgn(sig[:, 3 * CHUNK:], 20.0, rng, device)
+        _check_k6(p50, state, 0, x.t().contiguous(), errs, emit_rsum=False)
+        del sig
+    return {"psk_seq": max(errs)}
+
+
+def phase_psk_main_path(device, rng):
+    import math
+
+    from webaudio_modem_tpu_torch.models.farm import ModemFarm
+    from webaudio_modem_tpu_torch.models.psk import PSKConfig, PSKCore
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, psk_seq
+
+    farm = ModemFarm(PSKConfig(), MAIN_BATCH, device=device)
+    msgs = _messages(rng, MAIN_BATCH, 13)
+    sig = farm.modulate(msgs)
+    n_chunks = -(-sig.shape[1] // CHUNK)
+    psk_seq.launches = 0
+    fsk_framing.launches = 0
+    t0 = time.perf_counter()
+    decoded = farm.demodulate(sig, chunk_size=CHUNK)
+    seconds = time.perf_counter() - t0
+    launches = {"psk_seq": psk_seq.launches,
+                "fsk_framing": fsk_framing.launches}
+    exact = sum(d == m for d, m in zip(decoded, msgs))
+    print(f"  ModemFarm(PSKConfig()) B={MAIN_BATCH}: {exact}/{MAIN_BATCH} "
+          f"messages exact over {n_chunks} chunks of {CHUNK} samples "
+          f"({seconds:.2f} s host wall, bytes collected per chunk); "
+          f"launches {launches}")
+    if exact != MAIN_BATCH:
+        raise RuntimeError(f"DBPSK: only {exact}/{MAIN_BATCH} exact")
+    if launches != {"psk_seq": n_chunks, "fsk_framing": n_chunks}:
+        raise RuntimeError(f"launches {launches} != {n_chunks} chunk steps")
+    if not (farm.get_status()["sync_detections"] == 1).all():
+        raise RuntimeError("a DBPSK channel did not sync exactly once")
+    quality = farm.get_signal_quality()[0]
+    print(f"  channel 0 quality: {quality}")
+
+    core = PSKCore(PSKConfig(), device=device)
+    message = b"Hello, World!"
+    out = core.demodulate_data(core.modulate_data(message))
+    core_quality = core.get_signal_quality()
+    print(f"  PSKCore round trip: {out!r}; quality {core_quality}")
+    if out != message:
+        raise RuntimeError(f"PSKCore decoded {out!r}")
+    for q in (quality, core_quality):
+        values = [q.snr, q.ber, q.eye_opening, q.phase_jitter,
+                  q.frequency_offset]
+        if not all(math.isfinite(v) for v in values):
+            raise RuntimeError(f"signal quality not finite: {q}")
+    return launches
+
+
+def phase_psk_timings(device, rng, card):
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import psk
+    from webaudio_modem_tpu_torch.ops.kernels import psk_seq
+
+    params = _psk_params()
+    timings, placement_cases = {}, {}
+    for B in (CHECK_BATCH, MAIN_BATCH):
+        sig = psk.modulate_batch(params, _messages(rng, B, 13), device)
+        n = sig.shape[1] // CHUNK
+        chunks = [sig[:, i * CHUNK:(i + 1) * CHUNK] for i in range(n)]
+        # the plain version once, at the smaller B; ``step`` closes over
+        # ``plain``, so the loop must end on the kernels' run at MAIN_BATCH
+        runs = ((False, 25), (True, 1)) if B == CHECK_BATCH else ((False, 25),)
+        for plain, reps in runs:
+            st = [psk.init_state(params, B, device), 0]
+
+            def step():
+                st[0], _ = psk.demod_chunk(params, 0, st[0],
+                                           chunks[st[1] % n], plain=plain)
+                st[1] += 1
+            if not plain:
+                for _ in range(3):
+                    step()
+            ms = _cuda_ms(step, reps)
+            path = "plain" if plain else "kernels"
+            channels = B * AUDIO_S_PER_CHUNK / (ms / 1e3)
+            print(f"  DBPSK demod_chunk B={B} {path}: {ms:.3f} ms per 0.1 s "
+                  f"chunk, {channels:,.0f} realtime channels [{card}]")
+            timings[f"demod_chunk_B{B}{'_plain' if plain else ''}"] = {
+                "ms": ms, "realtime_channels": channels}
+
+        if B == MAIN_BATCH:
+            state = st[0]
+            args = (params, *_psk_args(state, 0, chunks[0].t().contiguous(),
+                                       True))
+            out = psk_seq.seq(*args)
+            n_dec = out[3].shape[0]
+            plain_ms = _cuda_ms(lambda: psk_seq.seq_plain(*args), 1)
+            try:
+                _profile(f"DBPSK demod_chunk B={B}",
+                         lambda: [step() for _ in range(10)], 10,
+                         timings[f"demod_chunk_B{B}"]["ms"], card)
+            except RuntimeError as exc:     # a measurement, not a check
+                print(f"  profile: torch.profiler failed: {exc}")
+            timings["psk_seq"] = _timing(
+                f"T={CHUNK} B={B} D={params.ds_samples_per_bit}, with R, "
+                "rings in shared memory",
+                _cuda_ms(lambda: psk_seq.seq(*args), 20), plain_ms,
+                _nbytes(*args[2:], *out),
+                CHUNK * B * K1_OPS_PER_SAMPLE
+                + n_dec * B * K6_OPS_PER_DECISION)
+            _print_timing("psk_seq", timings["psk_seq"], card)
+            placement_cases[f"D=20, with R, B={B}"] = (args, {})
+    # without R at D = 480 (rings in shared memory) and D = 960 (in
+    # device memory), on noise
+    for name, p50 in (("d480", _psk_params(baud_rate=50)),
+                      ("d960", _psk_params(**PSK_DEVICE_RING_CONFIG))):
+        D = p50.ds_samples_per_bit
+        st = psk.init_state(p50, CHECK_BATCH, device)
+        x = torch.from_numpy(rng.standard_normal(
+            (CHUNK, CHECK_BATCH), dtype=np.float32)).to(device)
+        args = (p50, *_psk_args(st, 0, x, False))
+        out = psk_seq.seq(*args, emit_rsum=False)
+        where = "device" if name == "d960" else "shared"
+        t = _timing(f"T={CHUNK} B={CHECK_BATCH} D={D}, no R, rings in "
+                    f"{where} memory",
+                    _cuda_ms(lambda: psk_seq.seq(*args, emit_rsum=False), 20),
+                    _cuda_ms(lambda: psk_seq.seq_plain(*args,
+                                                       emit_rsum=False), 1),
+                    _nbytes(*args[2:5], x, *out),
+                    CHUNK * CHECK_BATCH * K1_OPS_PER_SAMPLE
+                    + out[3].shape[0] * CHECK_BATCH * K6_OPS_PER_DECISION)
+        timings[f"psk_seq_{name}"] = t
+        _print_timing("psk_seq", t, card)
+        if name == "d480":
+            placement_cases[f"D={D}, no R, B={CHECK_BATCH}"] = (
+                args, {"emit_rsum": False})
+    timings["placements"] = _time_placements(placement_cases, card)
+    return timings
+
+
+def _time_placements(cases, card):
+    """K6's ring placement, measured: each case through the kernel as
+    built (rings in shared memory at these D) and through a copy built
+    with -DWAM_PSK_SHARED_LIMIT=0 (rings in device memory at every D),
+    in turns (shared, device, device, shared; 20 launches each).  The
+    two builds' outputs must be equal.  Returns {case: {where: mean
+    ms}}."""
+    import ctypes
+    import subprocess
+
+    from webaudio_modem_tpu_torch.ops.kernels import _build, psk_seq
+
+    path = _build.BUILD_DIR / "libwam_psk_seq_device_rings.so"
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                            "-DWAM_PSK_SHARED_LIMIT=0", "-o", str(path),
+                            str(_build.CSRC_DIR / "psk_seq.cu")],
+                           capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({built.returncode}):\n"
+                           f"{built.stdout}{built.stderr}")
+    builds = {"shared": _build.library("psk_seq"),
+              "device": ctypes.CDLL(str(path))}
+    result = {}
+    try:
+        for case, (args, kw) in cases.items():
+            ms, outs = {"shared": [], "device": []}, {}
+            for where in ("shared", "device", "device", "shared"):
+                _build._libs["psk_seq"] = builds[where]
+                outs[where] = psk_seq.seq(*args, **kw)
+                ms[where].append(_cuda_ms(lambda: psk_seq.seq(*args, **kw),
+                                          20))
+            for a, b in zip(outs["shared"], outs["device"]):
+                _equal_or_raise(f"K6 {case}, shared vs device rings", a, b)
+            result[case] = {w: sum(v) / len(v) for w, v in ms.items()}
+            print(f"  psk_seq {case}, rings in shared / device memory (in "
+                  f"turns): {ms['shared'][0]:.4f}, {ms['device'][0]:.4f}, "
+                  f"{ms['device'][1]:.4f}, {ms['shared'][1]:.4f} ms; "
+                  "outputs equal [" + card + "]")
+    finally:
+        _build._libs["psk_seq"] = builds["shared"]
+    return result
 
 
 def main() -> int:
@@ -795,12 +1091,21 @@ def main() -> int:
     print("phase 5: hard-path timings")
     kernel_ms = phase_timings(device, rng, card)
     print("phase 6: soft-path kernels vs plain on the card")
-    for name, err in phase_soft_kernels_vs_plain(device, rng).items():
+    soft_errs, k7_timing = phase_soft_kernels_vs_plain(device, rng)
+    for name, err in soft_errs.items():
         max_err[name] = max(max_err.get(name, 0.0), err)
+    _print_timing("fsk_seq K7", k7_timing, card)
     print("phase 7: soft main path")
     soft_launches = phase_soft_main_path(device, rng)
     print("phase 8: soft-path timings")
     soft = phase_soft_timings(device, rng, card)
+    print("phase 9: DBPSK kernel vs plain on the card")
+    for name, err in phase_psk_kernels_vs_plain(device, rng).items():
+        max_err[name] = max(max_err.get(name, 0.0), err)
+    print("phase 10: DBPSK main path")
+    psk_launches = phase_psk_main_path(device, rng)
+    print("phase 11: DBPSK timings")
+    psk = phase_psk_timings(device, rng, card)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib",
@@ -810,7 +1115,8 @@ def main() -> int:
 
     def row(name, src, rep, t, extra):
         by_path = {"hard_fsk": hard_launches.get(name, 0),
-                   "soft_fec": soft_launches.get(name, 0)}
+                   "soft_fec": soft_launches.get(name, 0),
+                   "dbpsk": psk_launches.get(name, 0)}
         if not any(by_path.values()):
             raise RuntimeError(f"{name}: no launch on a main path")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -837,13 +1143,25 @@ def main() -> int:
                      for k in ("shape", "ms", "plain_ms", "bound_ms",
                                "bound_by")},
                 "emit_rsum=False: K7, fsk_seq.py:61 (ds > 256)":
-                    "exact vs plain in phase 6"}}),
+                    {k: k7_timing[k]
+                     for k in ("shape", "ms", "plain_ms", "bound_ms",
+                               "bound_by")}}}),
         row("fsk_framing", "fsk_framing.cu", "fsk_framing.py:208",
             kernel_ms["fsk_framing"], {}),
         row("viterbi", "viterbi.cu", "viterbi.py:82", soft["viterbi_header"],
             others("viterbi_body", "viterbi_payload-100")),
         row("align", "align.cu", "align.py:75", soft["align_header"],
             others("align_body")),
+        row("psk_seq", "psk_seq.cu", "psk_seq.py:54", psk["psk_seq"],
+            {"modes": {
+                "D=20 with R (the DBPSK path)": "the row's numbers",
+                **{psk[n]["shape"]: {k: psk[n][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}
+                   for n in ("psk_seq_d480", "psk_seq_d960")}},
+             "ring_placement_ms": psk["placements"],
+             "demod_chunk_ms": {n: psk[n]["ms"] for n in (
+                 "demod_chunk_B2048", "demod_chunk_B4096",
+                 "demod_chunk_B2048_plain")}}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

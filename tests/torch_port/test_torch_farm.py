@@ -12,6 +12,7 @@ from webaudio_modem_tpu.models.farm import ModemFarm as JaxFarm
 from webaudio_modem_tpu.models.fsk import FSKCore as JaxCore
 from webaudio_modem_tpu_torch.models.farm import ModemFarm
 from webaudio_modem_tpu_torch.models.fsk import FSKCore
+from webaudio_modem_tpu_torch.models.psk import PSKConfig
 from webaudio_modem_tpu_torch.ops.fsk_demod import max_bytes
 
 B = 8
@@ -66,8 +67,17 @@ def test_farm_rejects_unported_options():
     @dataclasses.dataclass
     class PSKLike:
         baud_rate: int = 1200
-    with pytest.raises(NotImplementedError, match="slice D"):
+    with pytest.raises(NotImplementedError, match="FSKConfig or a PSKConfig"):
         ModemFarm(PSKLike(), B, device="cpu")
+
+
+def test_farm_takes_psk_config():
+    """A PSKConfig selects the DBPSK family: its state carries the delay
+    ring, and its parameters put mark and space on the carrier."""
+    farm = ModemFarm(PSKConfig(), B, device="cpu")
+    assert farm.params.mark_freq == farm.params.space_freq == 1800.0
+    assert farm.state.ring.shape == (2 * farm.params.ds_samples_per_bit, B)
+    assert farm.state.front.shape == (15, B)
 
 
 def _status_without_threshold(status):

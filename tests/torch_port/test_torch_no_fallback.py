@@ -22,9 +22,10 @@ import torch
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.models.farm import ModemFarm
 from webaudio_modem_tpu_torch.models.fsk import FSKCore
-from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod, soft_fsk
+from webaudio_modem_tpu_torch.models.psk import PSKConfig, PSKCore
+from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod, psk, soft_fsk
 from webaudio_modem_tpu_torch.ops.kernels import (_build, align, fsk_framing,
-                                                  fsk_seq, viterbi)
+                                                  fsk_seq, psk_seq, viterbi)
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -75,7 +76,8 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("fn", [
-    ModemFarm.__init__, FSKCore.__init__, fsk_mod.modulate_bits,
+    ModemFarm.__init__, FSKCore.__init__, PSKCore.__init__,
+    fsk_mod.modulate_bits,
     fec.viterbi_decode_soft, fec.viterbi_decode_bits, fec.decode_bytes,
     soft_fsk.encode_frame_signal, soft_fsk.encode_frames_batch,
     soft_fsk.decode_frames_batch, soft_fsk.decode_frames_batch_async,
@@ -92,6 +94,8 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
     calls = [
         lambda: ModemFarm(FSKConfig(), 2),
         lambda: FSKCore(FSKConfig()),
+        lambda: PSKCore(PSKConfig()),
+        lambda: ModemFarm(PSKConfig(), 2),
         lambda: soft_fsk.decode_frames_batch(
             params, torch.zeros((1, 64)), 4),
         lambda: soft_fsk.encode_frames_batch(params, [b"abcd"]),
@@ -111,11 +115,11 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 def _launches():
     return (fsk_seq.launches, fsk_framing.launches, viterbi.launches,
-            align.launches)
+            align.launches, psk_seq.launches)
 
 
 @pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "viterbi",
-                                    "align"])
+                                    "align", "psk_seq"])
 def test_wrappers_raise_off_cpu(kernel):
     """Tensors on a device that is neither the CPU nor CUDA are refused,
     not handed to the plain version."""
@@ -134,6 +138,10 @@ def test_wrappers_raise_off_cpu(kernel):
                 params, ints, flts, state.bit_fill, z.bfloat16(), z, z, z, 4)
         elif kernel == "viterbi":
             viterbi.decode(z, z, 2)
+        elif kernel == "psk_seq":
+            st = psk.init_state(params, 4, "meta")
+            psk_seq.seq(params, 0, st.front, st.ds_acc, st.ring,
+                        st.bit_tail[-ds:], z)
         else:
             align.aligned_wsum(z, torch.zeros(4, dtype=torch.int32,
                                               device="meta"), 3, 2)

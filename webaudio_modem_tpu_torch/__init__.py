@@ -11,20 +11,23 @@ find:
   utils.crc16         CRC-16-CCITT-FALSE
   models.config       FSKConfig / FSKParams (same fields and derivation)
   models.fsk          FSKCore, the B=1 facade
-  models.farm         ModemFarm, B independent streaming channels
+  models.psk          PSKConfig / PSKCore, the DBPSK facade
+  models.farm         ModemFarm, B independent streaming channels (FSK
+                      or DBPSK, by the config's type)
   ops.filters         Butterworth biquad design
   ops.fsk_mod         batched phase-continuous FSK synthesis
   ops.fsk_demod       streaming hard-decision demodulator (demod_chunk)
+  ops.psk             DBPSK modulator and demodulator (demod_chunk)
   ops.fec             K=7 rate-1/2 convolutional code, batched Viterbi
   ops.soft_fsk        soft-decision FEC frames: encode, farm batch decode
   ops.kernels         hand-written Hopper kernels (csrc/*.cu) and their
                       plain PyTorch versions
 
-Ported so far: the streaming hard-FSK path and the farm soft-FEC decode
-(ROADMAP.md, queue 1).  The entry points run on the card unless the
-caller passes ``device="cpu"``.  Importing this package imports torch
-and numpy only, never the JAX package; kernels are built with nvcc the
-first time a CUDA tensor reaches them.
+Ported so far: the streaming hard-FSK path, the farm soft-FEC decode
+and DBPSK (ROADMAP.md, queue 1).  The entry points run on the card
+unless the caller passes ``device="cpu"``.  Importing this package
+imports torch and numpy only, never the JAX package; kernels are built
+with nvcc the first time a CUDA tensor reaches them.
 """
 
 __version__ = "0.1.0"

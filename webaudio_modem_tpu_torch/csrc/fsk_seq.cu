@@ -19,10 +19,11 @@
 // runtime arguments they cost it 13 % on an H100).
 //
 // Per full-rate sample: AGC, band-pass biquad, NCO rotation with
-// first-order renormalization, I/Q low-pass biquads.  Per downsample
-// group: 2x average, atan2f, wrapped phase difference, post low-pass
-// biquad, polarity slicer, and R — the rolling ds-wide sum of the sliced
-// bits — through a ds-deep ring seeded from the previous chunk's bits.
+// first-order renormalization, I/Q low-pass biquads (seq_front.cuh, the
+// front end K6 shares).  Per downsample group: 2x average, atan2f,
+// wrapped phase difference, post low-pass biquad, polarity slicer, and
+// R — the rolling ds-wide sum of the sliced bits — through a ds-deep ring
+// seeded from the previous chunk's bits.
 //
 // Design.  One thread per channel; the 20 state floats, the pending
 // downsample sums and the running R sum live in registers and the time
@@ -52,38 +53,19 @@
 // reach atan2f).  R is an exact integer in f32 (<= ds), stored as bf16,
 // exact for ds <= 256.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <math.h>
 
-struct FskSeqCoef {
-  float pre[5];   // b0 b1 b2 a1 a2
-  float iq[5];
-  float post[5];
-  float agc_target, agc_attack, agc_release;
-  float cw, sw;   // NCO rotation per sample
-  float polarity;
-  int agc_enabled, ratio, ds;
-};
+#include "seq_front.cuh"
 
 namespace {
 
 constexpr int kThreads = 32;
 constexpr int kBlock = 8;   // samples loaded ahead per thread
-constexpr int kFront = 20;
+constexpr int kFront = 20;  // the shared 15 rows, last_phase, post (4)
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 2.0f * kPi;
 
-__device__ __forceinline__ float biquad(const float c[5], float in, float x1,
-                                        float x2, float y1, float y2) {
-  // left to right, as the plain version: b0*x + b1*x1 + b2*x2 - a1*y1 - a2*y2
-  float f = c[0] * in;
-  f = f + c[1] * x1;
-  f = f + c[2] * x2;
-  f = f - c[3] * y1;
-  f = f - c[4] * y2;
-  return f;
-}
+using wam::biquad;
 
 template <bool kBits, bool kAmps, bool kCsum, bool kRsum>
 __global__ void __launch_bounds__(kThreads)
@@ -102,16 +84,11 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
   const int lane = threadIdx.x;
   const int stride = blockDim.x;
 
-  float s[kFront];
-#pragma unroll
-  for (int k = 0; k < kFront; ++k) s[k] = front_in[k * Bs + b];
-  float g = s[0];
-  float px1 = s[1], px2 = s[2], py1 = s[3], py2 = s[4];
-  float nc = s[5], ns = s[6];
-  float ix1 = s[7], ix2 = s[8], iy1 = s[9], iy2 = s[10];
-  float qx1 = s[11], qx2 = s[12], qy1 = s[13], qy2 = s[14];
-  float last_phase = s[15];
-  float ox1 = s[16], ox2 = s[17], oy1 = s[18], oy2 = s[19];
+  wam::Front fr;
+  fr.load(front_in, Bs, b);
+  float last_phase = front_in[15 * Bs + b];
+  float ox1 = front_in[16 * Bs + b], ox2 = front_in[17 * Bs + b];
+  float oy1 = front_in[18 * Bs + b], oy2 = front_in[19 * Bs + b];
 
   float run = 0.0f;
   if constexpr (kRsum) {
@@ -140,38 +117,8 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
     for (int u = 0; u < kBlock; ++u) {
       const int t = t0 + u;
       if (t >= T) break;
-      const float xt = xs[u];
-      // AGC
-      float y;
-      if (c.agc_enabled) {
-        y = xt * g;
-        const float level = fabsf(y);
-        const float tgt = c.agc_target / fmaxf(level, 1e-30f);
-        const float rate = level > c.agc_target ? c.agc_attack : c.agc_release;
-        if (level > 0.0f) {
-          float gn = g + (tgt - g) * rate;
-          gn = fminf(fmaxf(gn, 0.1f), 10.0f);
-          g = gn;
-        }
-      } else {
-        y = xt;
-      }
-      // band-pass pre-filter
-      const float f = biquad(c.pre, y, px1, px2, py1, py2);
-      px2 = px1; px1 = y; py2 = py1; py1 = f;
-      // NCO mix, then rotate the phasor and renormalize to first order
-      const float i_r = f * nc;
-      const float q_r = f * ns;
-      const float nc2 = nc * c.cw - ns * c.sw;
-      const float ns2 = ns * c.cw + nc * c.sw;
-      const float kk = 1.5f - 0.5f * (nc2 * nc2 + ns2 * ns2);
-      nc = nc2 * kk;
-      ns = ns2 * kk;
-      // I/Q low-pass
-      const float fi = biquad(c.iq, i_r, ix1, ix2, iy1, iy2);
-      ix2 = ix1; ix1 = i_r; iy2 = iy1; iy1 = fi;
-      const float fq = biquad(c.iq, q_r, qx1, qx2, qy1, qy2);
-      qx2 = qx1; qx1 = q_r; qy2 = qy1; qy1 = fq;
+      fr.step(c, xs[u]);
+      const float fi = fr.iy1, fq = fr.qy1;   // the I/Q low-pass outputs
 
       if (phase == 0 && t + c.ratio <= T) {  // first sample of a whole group
         acc_i = fi;
@@ -217,11 +164,11 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
     }
   }
 
-  const float r[kFront] = {g,   px1, px2, py1, py2, nc,  ns,
-                           ix1, ix2, iy1, iy2, qx1, qx2, qy1,
-                           qy2, last_phase, ox1, ox2, oy1, oy2};
+  fr.store(front_out, Bs, b);
+  const float r[kFront - wam::kFrontRows] = {last_phase, ox1, ox2, oy1, oy2};
 #pragma unroll
-  for (int k = 0; k < kFront; ++k) front_out[k * Bs + b] = r[k];
+  for (int k = wam::kFrontRows; k < kFront; ++k)
+    front_out[k * Bs + b] = r[k - wam::kFrontRows];
   // pending sums only while a group is open (the reference returns 0
   // when the chunk ends on a group boundary)
   acc_out[b] = phase != 0 ? acc_i : 0.0f;

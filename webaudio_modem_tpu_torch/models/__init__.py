@@ -1,5 +1,25 @@
-"""Modem models of the port: configuration, FSKCore and ModemFarm.
+"""Modem models of the port: configuration, FSKCore, PSKCore and
+ModemFarm.
 
-Import the submodules directly (``webaudio_modem_tpu_torch.models.farm``);
-this package imports nothing on its own.
+The names below are exported lazily (``from webaudio_modem_tpu_torch
+.models import PSKCore`` imports ``models.psk`` then), so importing this
+package imports nothing on its own and the ops modules that import
+``models.config`` form no import cycle with it.
 """
+
+_EXPORTS = {
+    "FSKConfig": "config", "FSKParams": "config", "FSKCore": "fsk",
+    "ModemFarm": "farm", "PSKConfig": "psk", "PSKCore": "psk",
+    "DEFAULT_PSK_CONFIG": "psk",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+    return getattr(module, name)

@@ -1,41 +1,64 @@
-"""ModemFarm — thousands of independent streaming FSK channels on one card.
+"""ModemFarm — thousands of independent streaming modem channels on one card.
 
 Counterpart of ``webaudio_modem_tpu/models/farm.py``: B concurrent
-48 kHz FSK streams demodulated with carried filter, NCO, sync and
-framing state, through the same ``demod_chunk`` as the B=1 FSKCore.
-Channels are a tensor dimension on the device given at construction
-(the card unless the caller asks for the CPU).
+48 kHz streams demodulated with carried filter, NCO, sync and framing
+state, through the same ``demod_chunk`` as the B=1 facade of the
+config's family: an FSKConfig runs the FSK pipeline (FSKCore's), a
+PSKConfig DBPSK (PSKCore's).  Channels are a tensor dimension on the
+device given at construction (the card unless the caller asks for the
+CPU).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from webaudio_modem_tpu_torch.core import SignalQuality
+from webaudio_modem_tpu_torch.models import psk as psk_model
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
-from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod, psk
 from webaudio_modem_tpu_torch.utils.device import resolve_device
 from webaudio_modem_tpu_torch.utils.trace import metrics
 
 
+_FSK_OPS = SimpleNamespace(init_state=fsk_demod.init_state,
+                           demod_chunk=fsk_demod.demod_chunk,
+                           modulate_batch=fsk_mod.modulate_batch,
+                           quality_from_state=fsk_demod.quality_from_state)
+_PSK_OPS = SimpleNamespace(init_state=psk.init_state,
+                           demod_chunk=psk.demod_chunk,
+                           modulate_batch=psk.modulate_batch,
+                           quality_from_state=psk.quality_from_state)
+
+
+def _resolve_family(config):
+    """(ops, params) of a config's model family."""
+    if isinstance(config, psk_model.PSKConfig):
+        return _PSK_OPS, psk_model.params_from_config(config)
+    if isinstance(config, FSKConfig):
+        return _FSK_OPS, FSKParams.from_config(config)
+    raise NotImplementedError(
+        f"{type(config).__name__}: ModemFarm takes an FSKConfig or a "
+        "PSKConfig")
+
+
 class ModemFarm:
     def __init__(self, config, batch: int, *, device="cuda", mesh=None):
-        if not isinstance(config, FSKConfig):
-            raise NotImplementedError(
-                f"{type(config).__name__}: only FSKConfig is ported; DBPSK "
-                "arrives with ROADMAP queue 1, slice D (item 13)")
+        """``config`` selects the model family: an FSKConfig runs the FSK
+        pipeline, a PSKConfig DBPSK on the same shared stages."""
+        self._ops, self.params = _resolve_family(config)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: sharding is not ported; ROADMAP queue 1, slice G "
                 "(item 18) decides what replaces it")
         self.config = config
-        self.params = FSKParams.from_config(config)
         self.batch = batch
         self.device = resolve_device(device)
-        self.state = fsk_demod.init_state(self.params, batch, self.device)
+        self.state = self._ops.init_state(self.params, batch, self.device)
         self._ds_phase = 0
 
     # -- modulation ---------------------------------------------------------
@@ -44,7 +67,7 @@ class ModemFarm:
         """[B] equal-length messages -> f32 [B, T] signal on the device."""
         if len(messages) != self.batch:
             raise ValueError(f"expected {self.batch} messages")
-        return fsk_mod.modulate_batch(self.params, messages, self.device)
+        return self._ops.modulate_batch(self.params, messages, self.device)
 
     # -- streaming demodulation ---------------------------------------------
 
@@ -59,7 +82,7 @@ class ModemFarm:
         """Feed one [B, T] frame; returns the DemodOut (device tensors).
         Use ``collect_bytes`` to decode on the host."""
         x = self._as_samples(samples)
-        self.state, out = fsk_demod.demod_chunk(
+        self.state, out = self._ops.demod_chunk(
             self.params, self._ds_phase, self.state, x)
         self._ds_phase = (self._ds_phase + x.shape[-1]) \
             % self.params.downsample_ratio
@@ -111,7 +134,7 @@ class ModemFarm:
         return [bytes(c) for c in collected]
 
     def reset(self) -> None:
-        self.state = fsk_demod.init_state(self.params, self.batch,
+        self.state = self._ops.init_state(self.params, self.batch,
                                           self.device)
         self._ds_phase = 0
 
@@ -128,9 +151,10 @@ class ModemFarm:
     def get_signal_quality(self) -> List[SignalQuality]:
         """Per-channel SignalQuality: snr from the carried amplitude
         window, ber from the sync-correlation mismatch, frequency offset
-        and phase jitter from the discriminator window statistics."""
-        ber, freq, jitter, eye = fsk_demod.quality_from_state(
-            self.params, self.state)
+        and phase jitter from the discriminator window statistics (the
+        differential phase over one bit period for DBPSK)."""
+        ber, freq, jitter, eye = self._ops.quality_from_state(self.params,
+                                                              self.state)
         amps = self.state.amp_tail.cpu().numpy()          # [A, B]
         thr = self.state.threshold.cpu().numpy()          # [B]
         active = amps > thr[None, :]

@@ -13,6 +13,8 @@ stages per chunk:
   D.   framing state machine and byte compaction — kernel K2,
        ``ops/kernels/fsk_framing.py``;
   then the SignalQuality window refresh at the last sync fire.
+Stages C and D and the quality refresh are ``sync_and_frame``, which the
+DBPSK chunk step (``ops/psk.py``) shares.
 
 ``demod_chunk`` runs K1 and K2 on CUDA tensors and their plain PyTorch
 versions on CPU tensors; ``plain=True`` forces the plain versions on
@@ -131,13 +133,11 @@ _QUALITY_FIELDS = ("last_sync_ratio", "q_win_sum", "q_win_sumsq",
                    "q_win_cnt")
 
 
-def state_from_reference(fields: Mapping[str, np.ndarray],
-                         device) -> DemodState:
-    """Build the port's state from a reference ``DemodState`` given as
-    numpy arrays by field name (``state._asdict()`` with each leaf, or
-    tuple of leaves, converted by ``np.asarray``; bf16 planes as their
-    exact float32 values).  A reference stream can then be continued by
-    the port mid-stream."""
+def _fields_from_reference(fields: Mapping[str, np.ndarray], device,
+                           front_fields) -> dict:
+    """The port's state fields, by name, from a reference state's numpy
+    fields; ``front_fields`` lists the reference fields packed into the
+    ``front`` plane, in order."""
     def f32(name):
         return np.asarray(fields[name], dtype=np.float32)
 
@@ -146,11 +146,11 @@ def state_from_reference(fields: Mapping[str, np.ndarray],
             [np.asarray(fields[n]).astype(dtype) for n in names])).to(device)
 
     B = f32("agc_gain").shape[-1]
-    front = np.concatenate([f32(n).reshape(k, B) for n, k in _FRONT_FIELDS])
+    front = np.concatenate([f32(n).reshape(k, B) for n, k in front_fields])
     ds_acc = np.stack([f32("ds_iacc"), f32("ds_qacc")])
     t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
         np.array(a)).to(device=device, dtype=dt)
-    return DemodState(
+    return dict(
         front=t(front), ds_acc=t(ds_acc),
         bit_tail=t(f32("bit_tail"), torch.bfloat16),
         r_tail=t(f32("r_tail"), torch.bfloat16),
@@ -165,14 +165,12 @@ def state_from_reference(fields: Mapping[str, np.ndarray],
     )
 
 
-def state_to_reference(state: DemodState) -> dict:
-    """The inverse of ``state_from_reference``: numpy arrays keyed by the
-    reference's field names, tuple fields as tuples of [B] rows, bf16
-    planes as float32 and ``started`` as bool."""
+def _fields_to_reference(state: DemodState, front_fields) -> dict:
+    """The inverse of ``_fields_from_reference``."""
     n = lambda t: t.detach().to("cpu", torch.float32).numpy()  # noqa: E731
     front = n(state.front)
     out, row = {}, 0
-    for name, k in _FRONT_FIELDS:
+    for name, k in front_fields:
         out[name] = front[row] if k == 1 else tuple(front[row:row + k])
         row += k
     out["ds_iacc"], out["ds_qacc"] = n(state.ds_acc)
@@ -189,6 +187,24 @@ def state_to_reference(state: DemodState) -> dict:
     for i, name in enumerate(_QUALITY_FIELDS):
         out[name] = n(state.quality[i])
     return out
+
+
+def state_from_reference(fields: Mapping[str, np.ndarray],
+                         device) -> DemodState:
+    """Build the port's state from a reference ``DemodState`` given as
+    numpy arrays by field name (``state._asdict()`` with each leaf, or
+    tuple of leaves, converted by ``np.asarray``; bf16 planes as their
+    exact float32 values).  A reference stream can then be continued by
+    the port mid-stream."""
+    return DemodState(**_fields_from_reference(fields, device,
+                                               _FRONT_FIELDS))
+
+
+def state_to_reference(state: DemodState) -> dict:
+    """The inverse of ``state_from_reference``: numpy arrays keyed by the
+    reference's field names, tuple fields as tuples of [B] rows, bf16
+    planes as float32 and ``started`` as bool."""
+    return _fields_to_reference(state, _FRONT_FIELDS)
 
 
 # ---------------------------------------------------------------------------
@@ -327,42 +343,30 @@ def quality_window_update(params: FSKParams, quality: torch.Tensor,
 # Full chunk step
 # ---------------------------------------------------------------------------
 
-def demod_chunk(params: FSKParams, ds_phase: int, state: DemodState,
-                samples: torch.Tensor, plain: bool = False
-                ) -> Tuple[DemodState, DemodOut]:
-    """Process one f32 [B, T] sample frame; returns (state', outputs).
-
-    ``ds_phase`` = samples already pending in the downsample accumulator
-    (host-tracked: (previous ds_phase + T) % downsample_ratio).
-    ``plain=True`` runs the plain PyTorch versions of K1 and K2 on
-    whatever device the tensors are on."""
-    B, T = samples.shape
+def sync_and_frame(params: FSKParams, state: DemodState, bits, amps,
+                   softs, rsum, *, plain: bool = False, **carried):
+    """Stages C and D and the quality window, shared by the FSK and DBPSK
+    chunk steps: from the sequential stage's planes [n_ds, B] (``rsum``
+    None where ds > 256), the sync ratios, the framing kernel K2 and the
+    quality refresh.  Returns (state', DemodOut), with the family's own
+    sequential-stage fields ``carried`` (front, ds_acc, ...) set in
+    state'.  ``plain=True`` runs K2's plain version on any device."""
+    B = bits.shape[1]
+    dev = bits.device
     ds = params.ds_samples_per_bit
     W = params.sync_window
-    use_r = ds <= 256        # R is exact in bf16 only up to 256
-    seq = fsk_seq.seq_plain if plain else fsk_seq.seq
-    framing = (fsk_framing.stage_d_compact_plain if plain
-               else fsk_framing.stage_d_compact)
-
-    x = samples.t().contiguous()
-    # R is exact in bf16 only up to ds = 256; above it K7 (no R) runs and
-    # stage C takes the exact cumsum form over the bits
-    front, ds_acc, bits, amps, softs, rsum = seq(
-        params, ds_phase, state.front, state.ds_acc,
-        state.bit_tail[-ds:] if use_r else None, x, emit_rsum=use_r)
     n_ds = bits.shape[0]
     maxb = max_bytes(params, n_ds)
     if n_ds == 0:
-        zi = torch.zeros((B,), dtype=torch.int32, device=samples.device)
-        return state.replace(front=front, ds_acc=ds_acc), DemodOut(
-            bytes_out=torch.zeros((B, maxb), dtype=torch.uint8,
-                                  device=samples.device),
+        zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+        return state.replace(**carried), DemodOut(
+            bytes_out=torch.zeros((B, maxb), dtype=torch.uint8, device=dev),
             byte_count=zi, sync_fired=zi.clone(), eod_fired=zi.clone(),
             mean_amplitude=torch.zeros((B,), dtype=torch.float32,
-                                       device=samples.device))
+                                       device=dev))
 
     ext_amps = torch.cat([state.amp_tail, amps])
-    if use_r:
+    if rsum is not None:
         ratios = _sync_ratios_from_r(params, state.r_tail, rsum)
         r_tail = (rsum[-(W - ds):] if n_ds >= W - ds else
                   torch.cat([state.r_tail, rsum])[-(W - ds):]).clone()
@@ -374,24 +378,48 @@ def demod_chunk(params: FSKParams, ds_phase: int, state: DemodState,
         r_tail = state.r_tail
         bit_tail = ext_bits[-W:].clone()
 
+    framing = (fsk_framing.stage_d_compact_plain if plain
+               else fsk_framing.stage_d_compact)
     ints, flts = _framing_carry(params, state)
     (ints_out, flts_out, bytes_out, byte_count, eod_fired, sync_fired,
      fire_t) = framing(params, ints, flts, state.bit_fill, bits, amps,
                        ratios, ext_amps, maxb)
     quality = quality_window_update(params, state.quality, ratios, softs,
                                     fire_t)
-    new_state = DemodState(
-        front=front, ds_acc=ds_acc, bit_tail=bit_tail, r_tail=r_tail,
+    new_state = state.replace(
+        bit_tail=bit_tail, r_tail=r_tail,
         amp_tail=ext_amps[-params.amp_window:].clone(),
         bit_fill=torch.clamp_max(state.bit_fill + n_ds, 2 ** 30),
         amp_fill=torch.clamp_max(state.amp_fill + n_ds, 2 ** 30),
         framing=ints_out[:9], threshold=flts_out[0],
         sync_count=state.sync_count + sync_fired,
         eod_count=state.eod_count + eod_fired,
-        quality=quality)
+        quality=quality, **carried)
     return new_state, DemodOut(
         bytes_out=bytes_out, byte_count=byte_count, sync_fired=sync_fired,
         eod_fired=eod_fired, mean_amplitude=amps.mean(0))
+
+
+def demod_chunk(params: FSKParams, ds_phase: int, state: DemodState,
+                samples: torch.Tensor, plain: bool = False
+                ) -> Tuple[DemodState, DemodOut]:
+    """Process one f32 [B, T] sample frame; returns (state', outputs).
+
+    ``ds_phase`` = samples already pending in the downsample accumulator
+    (host-tracked: (previous ds_phase + T) % downsample_ratio).
+    ``plain=True`` runs the plain PyTorch versions of K1 and K2 on
+    whatever device the tensors are on."""
+    ds = params.ds_samples_per_bit
+    # R is exact in bf16 only up to ds = 256; above it K7 (no R) runs and
+    # stage C takes the exact cumsum form over the bits
+    use_r = ds <= 256
+    seq = fsk_seq.seq_plain if plain else fsk_seq.seq
+    front, ds_acc, bits, amps, softs, rsum = seq(
+        params, ds_phase, state.front, state.ds_acc,
+        state.bit_tail[-ds:] if use_r else None, samples.t().contiguous(),
+        emit_rsum=use_r)
+    return sync_and_frame(params, state, bits, amps, softs, rsum,
+                          plain=plain, front=front, ds_acc=ds_acc)
 
 
 def make_demod_chunk(params: FSKParams, ds_phase: int):
@@ -406,23 +434,31 @@ def make_demod_chunk(params: FSKParams, ds_phase: int):
 
 @functools.lru_cache(maxsize=32)
 def _quality_calibration(params: FSKParams):
-    """Clean-signal discriminator statistics over the sync window.
-
-    Runs the plain pipeline (B=1, CPU) on a clean preamble+SFD+payload
-    signal and records, anchored at the sync-correlation peak, the peak
-    match ratio and, for every suffix length c of the window, the mean
-    and variance of the soft discriminator.  Returns (mean_table [W+1],
-    var_table [W+1], peak_ratio), numpy float64, index = sample count.
-    Built lazily at the first quality query of a configuration."""
+    """The FSK family's ``quality_calibration``: the plain sequential
+    stage (B=1, CPU) over a clean preamble+SFD+payload signal."""
     from webaudio_modem_tpu_torch.ops import fsk_mod
 
-    W = params.sync_window
-    dsb = params.ds_samples_per_bit
-    sig = fsk_mod.modulate_batch(params, [b"\x55"], "cpu")
+    x = fsk_mod.modulate_batch(params, [b"\x55"], "cpu").t().contiguous()
     state = init_state(params, 1, "cpu")
     _, _, bits, amps, softs, _ = fsk_seq.seq_plain(
-        params, 0, state.front, state.ds_acc, state.bit_tail[-dsb:],
-        sig.t().contiguous())
+        params, 0, state.front, state.ds_acc, None, x, emit_rsum=False)
+    return quality_calibration(params, state, bits, amps, softs)
+
+
+def quality_calibration(params: FSKParams, state: DemodState, bits, amps,
+                        softs):
+    """Clean-signal discriminator statistics over the sync window.
+
+    From a family's sequential-stage planes [n, 1] over a clean
+    preamble+SFD+payload signal (from ``state``, a fresh B=1 CPU state),
+    runs stages C and D plainly and records, anchored at the
+    sync-correlation peak, the peak match ratio and, for every suffix
+    length c of the window, the mean and variance of the soft
+    discriminator.  Returns (mean_table [W+1], var_table [W+1],
+    peak_ratio), numpy float64, index = sample count.  Each family builds
+    it lazily at the first quality query of a configuration."""
+    W = params.sync_window
+    dsb = params.ds_samples_per_bit
     ratios = _sync_ratios_cumsum(params, torch.cat([state.bit_tail, bits]))
     ints, flts = _framing_carry(params, state)
     _, (_, _, _, fires) = fsk_framing.stage_d_plain(
@@ -455,24 +491,31 @@ def _quality_calibration(params: FSKParams):
     return mean_t, var_t, cal_ratio
 
 
-def quality_from_state(params: FSKParams, state: DemodState):
+def quality_from_state(params: FSKParams, state: DemodState,
+                       delay_ds: int = 1, calibration=None,
+                       separation=None):
     """SignalQuality estimates [B] from the carried accumulators, as
     numpy: (ber, frequency_offset_hz, phase_jitter, eye_opening), each a
-    differential measurement against ``_quality_calibration``:
+    differential measurement against ``calibration``, the family's
+    ``quality_calibration`` tables (None: the FSK family's):
 
     * ``ber``: re-sliced bit errors in the known preamble+SFD window,
       (calibrated peak ratio - measured) over the W - ds valid positions;
     * ``frequency_offset``: the window's mean discriminator output minus
-      the calibration mean for the same window length, in Hz;
+      the calibration mean for the same window length, in Hz, scaled by
+      the differential delay ``delay_ds`` (one ds-step for FSK, one bit
+      period, ds, for DBPSK);
     * ``phase_jitter``: sqrt of the variance above the calibration's;
-    * ``eye_opening``: 1 - jitter / (class separation / 4), in [0, 1];
-      0 until a frame has synced.
+    * ``eye_opening``: 1 - jitter / (class separation / 4), in [0, 1],
+      with ``separation`` in radians (None: the FSK discriminator's level
+      separation); 0 until a frame has synced.
     """
     q = state.quality.detach().to("cpu", torch.float64).numpy()
     lsr, wsum, wsq, wcnt = q
     W = params.sync_window
     n_valid = W - params.ds_samples_per_bit
-    mean_t, var_t, cal_ratio = _quality_calibration(params)
+    mean_t, var_t, cal_ratio = (_quality_calibration(params)
+                                if calibration is None else calibration)
     ber = np.where(lsr > 0,
                    np.clip((cal_ratio - lsr) * W / max(n_valid, 1),
                            0.0, 1.0),
@@ -483,12 +526,13 @@ def quality_from_state(params: FSKParams, state: DemodState):
     var = np.maximum(wsq / np.maximum(wcnt, 1.0) - mean * mean, 0.0)
     # the quadrature NCO yields phase -(w_tone - w_c)t, so a positive
     # carrier offset shows up as a negative mean shift
-    hz_per_rad = params.downsample_rate / (2.0 * np.pi)
+    hz_per_rad = params.downsample_rate / (2.0 * np.pi * delay_ds)
     freq = np.where(have, -(mean - mean_t[idx]) * hz_per_rad, 0.0)
     jitter = np.where(have, np.sqrt(np.maximum(var - var_t[idx], 0.0)),
                       0.0)
-    dev_hz = abs(params.space_freq - params.mark_freq) / 2.0
-    separation = 2.0 * (2.0 * np.pi * dev_hz / params.downsample_rate)
+    if separation is None:
+        dev_hz = abs(params.space_freq - params.mark_freq) / 2.0
+        separation = 2.0 * (2.0 * np.pi * dev_hz / params.downsample_rate)
     eye = np.where(have,
                    np.clip(1.0 - jitter / (separation / 4.0), 0.0, 1.0),
                    0.0)

@@ -4,8 +4,10 @@ it with ctypes.
 The libraries have a plain C interface (no PyTorch headers), so a build
 takes seconds.  Each source is compiled for ``sm_90a`` at first use into
 ``build/kernels/`` beside the package, under a name keyed by a hash of
-that source and the flags, and reused while neither changes.  ``build``
-starts one nvcc per missing library, all at once, and waits for them.
+that source, the ``csrc/`` headers it includes (``seq_front.cuh``, the
+front end K1 and K6 share) and the flags, and reused while none of them
+changes.  ``build`` starts one nvcc per missing library, all at once, and
+waits for them.
 
 Floating-point flags: no ``--use_fast_math`` (``atan2f``, ``sqrtf`` and
 division stay IEEE) and ``-fmad=false``, so each kernel rounds op for op
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,6 +33,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # what the last build of each source printed (ptxas register / spill
@@ -56,12 +61,27 @@ def names() -> list:
     return sorted(src.stem for src in CSRC_DIR.glob("*.cu"))
 
 
+def headers(name: str) -> list:
+    """The ``csrc/`` headers that ``csrc/<name>.cu`` includes with
+    ``#include "..."``, directly or through another header, sorted."""
+    found, todo = set(), [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        text = todo.pop().read_text()
+        for inc in _INCLUDE.findall(text):
+            path = CSRC_DIR / inc
+            if path not in found and path.exists():
+                found.add(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` for the current source and
-    flags lives."""
-    src = CSRC_DIR / f"{name}.cu"
+    """Where the library of ``csrc/<name>.cu`` for the current source,
+    the headers it includes and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
+    for src in [CSRC_DIR / f"{name}.cu", *headers(name)]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libwam_{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -43,6 +43,7 @@ from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops.kernels import _build
 
 N_FRONT = 20
+N_SHARED = 15      # rows of the full-rate front end, shared with K6
 # kernel launches through ``seq`` (CPU calls run the plain version and
 # are not counted)
 launches = 0
@@ -84,25 +85,48 @@ def n_decisions(params: FSKParams, ds_phase: int, T: int) -> int:
 # ---------------------------------------------------------------------------
 
 class _Front:
-    """The unpacked front-end state of ``seq_plain``: [B] tensors, with
-    the NCO phasor and the I/Q filter taps stacked as [2, B] (row 0 = I,
-    row 1 = Q) so one elementwise op serves both rails."""
+    """The unpacked full-rate front end of a plain version, rows 0..14 of
+    the front plane (shared by K1 and K6): [B] tensors, with the NCO
+    phasor and the I/Q filter taps stacked as [2, B] (row 0 = I, row 1 =
+    Q) so one elementwise op serves both rails."""
 
     def __init__(self, front: torch.Tensor):
-        r = [front[i].clone() for i in range(N_FRONT)]
+        r = [front[i].clone() for i in range(N_SHARED)]
         self.g = r[0]
         self.pre = tuple(r[1:5])
         self.nco = torch.stack([r[5], r[6]])
         self.iq = tuple(torch.stack([r[7 + k], r[11 + k]])
                         for k in range(4))
-        self.last_phase = r[15]
-        self.post = tuple(r[16:20])
+
+    def rows(self) -> list:
+        return [self.g, *self.pre, self.nco[0], self.nco[1],
+                *(t[0] for t in self.iq), *(t[1] for t in self.iq)]
 
     def pack(self) -> torch.Tensor:
-        rows = [self.g, *self.pre, self.nco[0], self.nco[1],
-                *(t[0] for t in self.iq), *(t[1] for t in self.iq),
-                self.last_phase, *self.post]
-        return torch.stack(rows)
+        return torch.stack(self.rows())
+
+
+class _FskFront(_Front):
+    """K1's front plane: the shared rows, then the discriminator's
+    last_phase and post filter (rows 15..19)."""
+
+    def __init__(self, front: torch.Tensor):
+        super().__init__(front)
+        self.last_phase = front[15].clone()
+        self.post = tuple(front[16 + k].clone() for k in range(4))
+
+    def rows(self) -> list:
+        return super().rows() + [self.last_phase, *self.post]
+
+
+def _consts(c, dev) -> SimpleNamespace:
+    """The AGC and NCO scalars as tensors on ``dev``, for the plain
+    versions' elementwise ops."""
+    return SimpleNamespace(
+        target=torch.tensor(c.target, device=dev),
+        attack=torch.tensor(c.attack, device=dev),
+        release=torch.tensor(c.release, device=dev),
+        sw_signed=torch.tensor([[-c.sw], [c.sw]], device=dev))
 
 
 def _full_rate_step(c, s: _Front, x_t: torch.Tensor, k) -> torch.Tensor:
@@ -135,7 +159,7 @@ def _full_rate_step(c, s: _Front, x_t: torch.Tensor, k) -> torch.Tensor:
     return fo
 
 
-def _ds_decision(c, s: _Front, acc: torch.Tensor, with_amp: bool):
+def _ds_decision(c, s: _FskFront, acc: torch.Tensor, with_amp: bool):
     """atan2 phase / amplitude, wrapped phase diff, post-LPF, slicer
     (``fsk_demod._ds_decision``).  Returns (bit f32, amp or None, soft)."""
     avg = acc / float(c.ratio)
@@ -154,34 +178,16 @@ def _ds_decision(c, s: _Front, acc: torch.Tensor, with_amp: bool):
     return bit, amp, filt
 
 
-def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
-              ds_acc: torch.Tensor, ring0, x: torch.Tensor, *,
-              emit_bits: bool = True, emit_amps: bool = True,
-              emit_csum: bool = False, emit_rsum: bool = True):
-    """Plain PyTorch version of ``seq``: the same contract, one sample
-    at a time on [B] tensors, accumulating the downsample sums in the
-    reference's order (``fsk_demod._sequential_stage``: pending + fi for
-    the prefix, fi then + fi for whole groups, 0 + fi for the leftover).
-    """
-    flags = (emit_bits, emit_amps, emit_csum, emit_rsum)
-    c = _coefs(params)
-    dev = x.device
-    k = SimpleNamespace(
-        target=torch.tensor(c.target, device=dev),
-        attack=torch.tensor(c.attack, device=dev),
-        release=torch.tensor(c.release, device=dev),
-        sw_signed=torch.tensor([[-c.sw], [c.sw]], device=dev))
-    T, B = x.shape
+def run_groups(c, s: _Front, ds_phase: int, ds_acc: torch.Tensor,
+               x: torch.Tensor, decide) -> torch.Tensor:
+    """Run the front end over a chunk x [T, B] and call ``decide(acc)``
+    with the I/Q downsample sums [2, B] of each completed group, summed
+    in the reference's order (``fsk_demod._sequential_stage``: pending +
+    fi for the prefix, fi then + fi for whole groups, 0 + fi for the
+    leftover).  Returns the pending sums of the leftover samples."""
+    k = _consts(c, x.device)
+    T = x.shape[0]
     ratio = c.ratio
-    s = _Front(front)
-    bits, amps, softs = [], [], []
-
-    def decide(acc):
-        bit, amp, soft = _ds_decision(c, s, acc, emit_amps)
-        bits.append(bit)
-        amps.append(amp)
-        softs.append(soft)
-
     t = 0
     acc = ds_acc.clone()
     if ds_phase > 0:                 # complete the pending group
@@ -189,8 +195,7 @@ def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
             acc = acc + _full_rate_step(c, s, x[t], k)
             t += 1
         if ds_phase + T < ratio:     # still pending
-            return (s.pack(), acc) + _planes(params, bits, amps, softs,
-                                             ring0, B, dev, flags)
+            return acc
         decide(acc)
     while t + ratio <= T:            # whole groups
         acc = _full_rate_step(c, s, x[t], k)
@@ -202,8 +207,29 @@ def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
     while t < T:
         acc = acc + _full_rate_step(c, s, x[t], k)
         t += 1
-    return (s.pack(), acc) + _planes(params, bits, amps, softs, ring0, B,
-                                     dev, flags)
+    return acc
+
+
+def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
+              ds_acc: torch.Tensor, ring0, x: torch.Tensor, *,
+              emit_bits: bool = True, emit_amps: bool = True,
+              emit_csum: bool = False, emit_rsum: bool = True):
+    """Plain PyTorch version of ``seq``: the same contract, one sample
+    at a time on [B] tensors (``run_groups``)."""
+    flags = (emit_bits, emit_amps, emit_csum, emit_rsum)
+    c = _coefs(params)
+    s = _FskFront(front)
+    bits, amps, softs = [], [], []
+
+    def decide(acc):
+        bit, amp, soft = _ds_decision(c, s, acc, emit_amps)
+        bits.append(bit)
+        amps.append(amp)
+        softs.append(soft)
+
+    acc = run_groups(c, s, ds_phase, ds_acc, x, decide)
+    return (s.pack(), acc) + _planes(params, bits, amps, softs, ring0,
+                                     x.shape[1], x.device, flags)
 
 
 def csum_strict(softs: torch.Tensor) -> torch.Tensor:
