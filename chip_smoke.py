@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths through the hand-written kernels,
+Drives the port's four main paths through the hand-written kernels,
 which it builds with nvcc first (one nvcc per source, all at once):
 
   * streaming hard-decision FSK demodulation of thousands of channels
@@ -15,7 +15,11 @@ which it builds with nvcc first (one nvcc per source, all at once):
     (``csrc/align.cu``) and K3 (``csrc/viterbi.cu``);
   * streaming DBPSK demodulation of thousands of channels (1200 baud,
     1800 Hz carrier, 48 kHz, 0.1 s chunks, ``bench.py --family psk``):
-    K6 (``csrc/psk_seq.cu``) and K2.
+    K6 (``csrc/psk_seq.cu``) and K2;
+  * blind soft-frame acquisition (1200 baud, 0.1 s quanta,
+    ``soft_blind.BlindSoftBatchReceiver``): K1 per quantum, then K5
+    (``csrc/cumsum0.cu``), K4 and K3 in every header and body program;
+    and the streaming single-channel decoder (``SoftFrameDecoder``).
 
 Phases:
 
@@ -54,7 +58,23 @@ Phases:
  11. DBPSK timings: demod_chunk per chunk at B=2048 and 4096 (and its
      plain version once), K6 beside its plain version and its bound at
      D = 20, 480 and 960, and K6's ring placement timed in turns against
-     a copy built with its rings in device memory at every D.
+     a copy built with its rings in device memory at every D;
+ 12. K5 against its plain version, exactly (0 mismatches), at the blind
+     path's window shapes [7200 / 14400 / 91200, 4096] and at [37, 3]
+     and [0, 5]; against np.cumsum of the host copy at two of them;
+ 13. the blind main path at B=4096, two 16-byte frames per channel at
+     random offsets (silence gaps of 2000-9000 samples): clean (every
+     payload exact and in per-channel order; a frame not delivered only
+     inside a false sync's refractory span, the reference's rule),
+     launches counted (K1 per quantum; K5, K4, K3 once per program); at
+     8 dB with noise drawn on the card (no wrong payload); mixed lengths
+     1-64 from the headers alone; SoftFrameDecoder equal to the receiver
+     on single channels; 256 channels through the kernels and through
+     the plain versions (CPU) delivering the same payloads;
+ 14. blind timings: K5 beside its plain version, torch.cumsum and its
+     bound; the steady-state host wall per feed of a cyclic 16-byte
+     stream at 8 dB (realtime channels), its host stages and a profile;
+     the detector, header and body programs alone (CUDA events).
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
 CUDA device it fails in phase 1 and prints no result.  The line before
@@ -439,8 +459,8 @@ def _soft_planes(params, noisy):
     headers = fec._viterbi_core(h_llr.reshape(L, -1, 2),
                                 8 * soft_fsk.HEADER_PLAIN).reshape(
         B, -1, 8 * soft_fsk.HEADER_PLAIN)
-    found, st = soft_fsk._select_candidate(headers, starts, valid,
-                                           SOFT_PAYLOAD)
+    found, _, st = soft_fsk._select_candidate(headers, starts, valid,
+                                              payload_len=SOFT_PAYLOAD)
     b_starts = torch.where(found, st + soft_fsk.HEADER_CODED_BITS * ds,
                            torch.zeros_like(st))
     b_llr = soft_fsk._body_llrs(params, csum, b_starts, SOFT_PAYLOAD)
@@ -1057,6 +1077,530 @@ def _time_placements(cases, card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Soft-frame acquisition: K5, the blind receiver, the streaming decoder
+# ---------------------------------------------------------------------------
+
+# K5's shapes at B=4096 on the blind path: the header window (3 quanta of
+# 2400 ticks), the 16-byte body window (6 quanta) and the 255-byte one
+# (38 quanta, the receiver's max_payload)
+CSUM_SHAPES = ((7200, 4096), (14400, 4096), (91200, 4096))
+CSUM_SMALL_SHAPES = ((37, 3), (0, 5))
+BLIND_GAPS = (2000, 9000)         # silence between frames, samples
+PLAIN_RUN_BATCH = 256
+DECODER_CHANNELS = 4              # single channels through SoftFrameDecoder
+
+
+def _csum_bound(n, B):
+    """K5's least time: read x once, write the [n + 1, B] output once."""
+    return (n * B + (n + 1) * B) * 4, n * B
+
+
+def phase_cumsum_vs_plain(device):
+    """K5 against its plain version, exactly, at the blind path's shapes
+    and two small ones; also against np.cumsum of the host copy."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import cumsum0
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    for n, B in CSUM_SHAPES + CSUM_SMALL_SHAPES:
+        x = torch.randn((n, B), generator=gen, device=device)
+        k = cumsum0.csum0(x)
+        p = cumsum0.csum0_plain(x)
+        torch.cuda.synchronize()
+        if k.shape != (n + 1, B):
+            raise RuntimeError(f"K5 [{n}, {B}]: output shape {k.shape}")
+        bad = int((k != p).sum())
+        line = f"  K5 [{n}, {B}]: {bad} mismatches vs plain"
+        if (n, B) in ((37, 3), (7200, 4096)):
+            ref = np.zeros((n + 1, B), np.float32)
+            np.cumsum(x.cpu().numpy(), axis=0, out=ref[1:])
+            bad_np = int((k.cpu().numpy() != ref).sum())
+            line += f", {bad_np} vs np.cumsum of the host copy"
+            bad += bad_np
+        print(line)
+        if bad:
+            raise RuntimeError(f"K5 [{n}, {B}] is not exact")
+        del x, k, p
+    return 0.0
+
+
+def _place_frames(params, rng, rows, device, gaps=BLIND_GAPS):
+    """[B, T] stream on the card, as the reference test's ``_place``: per
+    channel, silence, then the frames of ``rows`` (rows[k][b] is channel
+    b's k-th payload) each followed by silence, at random gaps; T is a
+    whole number of quanta.  Frames of one length are synthesized in one
+    ``encode_frames_batch``.  Returns (stream, expected payload lists,
+    frame offsets [K, B] in samples)."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    B = len(rows[0])
+    lens = np.array([[len(r[b]) for b in range(B)] for r in rows])  # [K, B]
+    sig_len = np.vectorize(
+        lambda n: soft_fsk.frame_signal_length(params, int(n)))(lens)
+    gap = rng.integers(gaps[0], gaps[1], (len(rows) + 1, B))
+    offs = gap[0] + np.concatenate(
+        [np.zeros((1, B), np.int64),
+         np.cumsum(sig_len + gap[1:], 0)[:-1]])                  # [K, B]
+    ends = offs[-1] + sig_len[-1] + gap[-1]
+    T = -(-int(ends.max()) // CHUNK) * CHUNK
+    stream = torch.zeros((B, T), dtype=torch.float32, device=device)
+    for k, row in enumerate(rows):
+        for n in np.unique(lens[k]).tolist():
+            chs = np.nonzero(lens[k] == n)[0]
+            sig = soft_fsk.encode_frames_batch(
+                params, [row[b] for b in chs], device=device)
+            idx = (torch.from_numpy(offs[k, chs]).to(device)[:, None]
+                   + torch.arange(sig.shape[1], device=device)[None, :])
+            ch_t = torch.from_numpy(chs).to(device)[:, None]
+            stream[ch_t, idx] = sig
+    return stream, [[r[b] for r in rows] for b in range(B)], offs
+
+
+def _run_blind(rx, stream):
+    """Feed ``stream`` quantum by quantum, then flush; per-channel payload
+    lists in delivery order, and the host wall per feed (ms)."""
+    import torch
+
+    B, T = stream.shape
+    got = [[] for _ in range(B)]
+    t0 = time.perf_counter()
+    for off in range(0, T, CHUNK):
+        for ch, pl in rx.feed(stream[:, off:off + CHUNK]):
+            got[ch].append(pl)
+    for ch, pl in rx.flush():
+        got[ch].append(pl)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / rx.get_status()["fed_quanta"]
+    return got, wall_ms
+
+
+def _score(got, expected):
+    """(delivered, wrong, channels exact and in order): a wrong payload is
+    one its channel never sent."""
+    delivered = sum(len(g) for g in got)
+    wrong = sum(p not in e for g, e in zip(got, expected) for p in g)
+    exact = sum(g == e for g, e in zip(got, expected))
+    return delivered, wrong, exact
+
+
+def _blind_launch_counters():
+    from webaudio_modem_tpu_torch.ops.kernels import (align, cumsum0,
+                                                      fsk_seq, viterbi)
+
+    return {"fsk_seq": fsk_seq, "cumsum0": cumsum0, "align": align,
+            "viterbi": viterbi}
+
+
+def _reset_launches():
+    for mod in _blind_launch_counters().values():
+        mod.launches = 0
+
+
+def _read_launches():
+    return {name: mod.launches
+            for name, mod in _blind_launch_counters().items()}
+
+
+def _program_args(rx, device):
+    """All channels active with a peak one quantum and 700 ticks into the
+    header window, and body starts after that header: arguments of
+    ``_header_prog`` / ``_body_prog`` for launch counts and timings."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    B = rx.batch
+    t_rel = torch.full((B,), rx._n_ds + 700, dtype=torch.int32, device=device)
+    b_rel = t_rel + 1 + soft_fsk.HEADER_CODED_BITS \
+        * rx._params.ds_samples_per_bit
+    act = torch.ones((B,), dtype=torch.bool, device=device)
+    return t_rel, b_rel, act
+
+
+def _record_emits(rx):
+    """Keep each quantum's detector emits (an int32 [4, B] plane on the
+    card: emit_a, pos1, emit_b, pos_b) for the checks after the run."""
+    emits = []
+    detect = rx._detect
+
+    def step(*args):
+        out = detect(*args)
+        emits.append(out)
+        return out
+
+    rx._detect = step
+    return emits
+
+
+def _check_delivery(label, rx, emits, got, expected, offs, limit=4):
+    """Hold a clean run to the receiver's contract: no payload a channel
+    did not send, each channel's payloads in the order sent, and every
+    frame not delivered explained by the reference's refractory rule:
+    any event, true or false, holds off the next one for refract_span
+    ticks, so a false sync late in a body hides a frame that follows
+    within that span.  A frame is explained when an event that is no sent
+    frame's own peak lies within refract_span ticks before its expected
+    peak.  Returns (delivered, lost frames explained, failures)."""
+    import numpy as np
+    import torch
+
+    params = rx._params
+    ds = params.ds_samples_per_bit
+    # expected sync peaks: the end of lead + pattern, in ticks
+    head = (2 + len(params.pattern_bits)) * params.samples_per_bit
+    ev = torch.stack(emits).cpu().numpy()                  # [Q, 4, B]
+    delivered, wrong, explained, failures = 0, 0, 0, []
+    for b, (g, e) in enumerate(zip(got, expected)):
+        delivered += len(g)
+        if g == e:
+            continue
+        if any(p not in e for p in g) or g != [p for p in e if p in g]:
+            wrong += 1
+            continue
+        peaks = (offs[:, b] + head) // params.downsample_ratio
+        pos = np.concatenate([ev[ev[:, 0, b] != 0, 1, b],
+                              ev[ev[:, 2, b] != 0, 3, b]])
+        false = [q for q in pos if np.abs(peaks - q).min() > 2 * ds]
+        for k, p in enumerate(peaks):
+            if e[k] in g:
+                continue
+            holders = [q for q in false if p - rx._refract_span <= q < p]
+            if holders:
+                explained += 1
+                if explained <= limit:
+                    print(f"    {label} channel {b}: frame {k} (sent at "
+                          f"sample {offs[k, b]}, peak near tick {p}) inside "
+                          f"the refractory span of a false sync at tick "
+                          f"{holders[-1]}")
+            else:
+                failures.append(f"{label} channel {b}: frame {k} lost "
+                                "without a refractory explanation")
+    if wrong:
+        failures.append(f"{label}: {wrong} channels delivered a payload "
+                        "not sent, or out of order")
+    return delivered, explained, failures
+
+
+def phase_blind_main_path(device, rng, card):
+    """The blind receiver at B=4096 (clean, 8 dB, mixed lengths), the
+    streaming decoder on single channels, and the kernels against the
+    plain versions on a 256-channel run.  Every check runs; the phase
+    raises at its end if any failed."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+    from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
+    from webaudio_modem_tpu_torch.sim import make_device_awgn
+
+    params = _soft_params()
+    B = MAIN_BATCH
+    failures = []
+    rows = [_messages(rng, B, SOFT_PAYLOAD) for _ in range(2)]
+    stream, expected, offs = _place_frames(params, rng, rows, device)
+    n_q = stream.shape[1] // CHUNK
+    print(f"  stream [{B}, {stream.shape[1]}] ({n_q} quanta of {CHUNK}): "
+          f"2 frames of {SOFT_PAYLOAD} bytes per channel at random offsets")
+    out = {}
+
+    # clean: the main path, launches counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rx = BlindSoftBatchReceiver(params, B, CHUNK, device=device)
+    emits = _record_emits(rx)
+    _reset_launches()
+    got, wall_ms = _run_blind(rx, stream)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    status = rx.get_status()
+    delivered, lost, fails = _check_delivery("clean", rx, emits, got,
+                                             expected, offs)
+    failures += fails
+    out["clean"] = {"delivered": delivered, "sent": 2 * B,
+                    "lost_to_refractory": lost}
+    print(f"  clean B={B}: {delivered}/{2 * B} payloads delivered exact and "
+          f"in per-channel order, {lost} lost to a false sync's refractory "
+          f"span (the reference's rule); {status['fed_quanta']} feeds, "
+          f"{wall_ms:.3f} ms host wall per feed (first run); launches "
+          f"{launches}; status {status}")
+    programs = status["programs"]
+    n_prog = programs["header"] + programs["body"]
+    if launches != {"fsk_seq": status["fed_quanta"], "cumsum0": n_prog,
+                    "align": n_prog, "viterbi": n_prog}:
+        failures.append(f"blind launches {launches} vs {programs}")
+    out["peak_mib"] = peak / 2 ** 20
+    print(f"  peak device memory, clean run: {out['peak_mib']:.1f} MiB "
+          f"(ring {rx._rx.ring.numel() * 4 / 2 ** 20:.1f} MiB) [{card}]")
+
+    # one header and one body program alone: launches per program
+    t_rel, b_rel, act = _program_args(rx, device)
+    per = {}
+    for name, call in (("header", lambda: rx._header_prog(1, t_rel, act)),
+                       ("body", lambda: rx._body_prog(SOFT_PAYLOAD, 1, b_rel,
+                                                      act))):
+        _reset_launches()
+        call()
+        per[name] = _read_launches()
+    print(f"  launches per header program {per['header']}, per body "
+          f"program {per['body']}")
+    for name, n in per.items():
+        if n != {"fsk_seq": 0, "cumsum0": 1, "align": 1, "viterbi": 1}:
+            failures.append(f"{name} program launches {n}")
+    del rx
+
+    # 8 dB: uniform noise drawn on the card inside the detector
+    sig_power = float(torch.mean(soft_fsk.encode_frames_batch(
+        params, rows[0][:16], device=device).double() ** 2))
+    noise_power = sig_power / 10 ** (SOFT_SNR_DB / 10)
+    rx = BlindSoftBatchReceiver(params, B, CHUNK, seed=1, device=device,
+                                channel_fn=make_device_awgn(noise_power))
+    got8, _ = _run_blind(rx, stream)
+    delivered, wrong, exact = _score(got8, expected)
+    print(f"  {SOFT_SNR_DB:g} dB B={B}: {delivered}/{2 * B} payloads "
+          f"delivered, {wrong} wrong, {exact}/{B} channels complete; "
+          f"status {rx.get_status()}")
+    if wrong:
+        failures.append(f"8 dB run: {wrong} wrong payloads")
+    out["delivered_8db"] = delivered
+    del rx
+
+    # mixed lengths 1-64, from the decoded headers only
+    lens = [[1 + (b + 32 * k) % 64 for b in range(B)] for k in range(2)]
+    rows_m = [[bytes(rng.integers(0, 256, n, dtype="uint8")) for n in ln]
+              for ln in lens]
+    stream_m, expected_m, offs_m = _place_frames(params, rng, rows_m, device)
+    rx = BlindSoftBatchReceiver(params, B, CHUNK, device=device)
+    emits = _record_emits(rx)
+    got_m, _ = _run_blind(rx, stream_m)
+    delivered, lost, fails = _check_delivery("mixed", rx, emits, got_m,
+                                             expected_m, offs_m)
+    failures += fails
+    out["mixed"] = {"delivered": delivered, "sent": 2 * B,
+                    "lost_to_refractory": lost}
+    print(f"  mixed lengths 1-64 B={B} ({stream_m.shape[1] // CHUNK} "
+          f"quanta): {delivered}/{2 * B} delivered exact and in order, "
+          f"{lost} lost to a false sync's refractory span; status "
+          f"{rx.get_status()}")
+    del rx, stream_m
+
+    # the streaming decoder on single channels, in 4800-sample chunks
+    feed_ms, dec_bad = [], 0
+    for b in range(DECODER_CHANNELS):
+        dec = soft_fsk.SoftFrameDecoder(params, device=device)
+        x = stream[b].cpu().numpy()
+        single = []
+        for off in range(0, len(x), CHUNK):
+            t0 = time.perf_counter()
+            single += dec.feed(x[off:off + CHUNK])
+            feed_ms.append((time.perf_counter() - t0) * 1e3)
+        if single != got[b]:
+            dec_bad += 1
+            failures.append(f"SoftFrameDecoder channel {b}: {single} vs the "
+                            f"receiver's {got[b]}")
+    steady = sorted(feed_ms[4:])
+    out["decoder_feed_ms"] = sum(steady) / len(steady)
+    print(f"  SoftFrameDecoder on channels 0-{DECODER_CHANNELS - 1}: "
+          f"{DECODER_CHANNELS - dec_bad} equal to the receiver; "
+          f"{out['decoder_feed_ms']:.3f} ms host wall per "
+          f"{CHUNK}-sample feed (median {steady[len(steady) // 2]:.3f}) "
+          f"[{card}]")
+
+    # kernels against plain: 256 channels through the kernels, then
+    # through the plain versions (device="cpu")
+    Bp = PLAIN_RUN_BATCH
+    sub = stream[:Bp]
+    runs = {}
+    for where in ("cuda", "cpu"):
+        rx = BlindSoftBatchReceiver(params, Bp, CHUNK,
+                                    device=device if where == "cuda" else
+                                    "cpu")
+        t0 = time.perf_counter()
+        runs[where] = (_run_blind(rx, sub if where == "cuda" else
+                                  sub.cpu())[0], rx.get_status())
+        print(f"  B={Bp} through the "
+              f"{'kernels' if where == 'cuda' else 'plain versions (CPU)'}: "
+              f"{time.perf_counter() - t0:.1f} s, status {runs[where][1]}")
+    same = runs["cuda"][0] == runs["cpu"][0]
+    if not same:
+        failures.append(f"B={Bp}: kernels and plain versions delivered "
+                        "different payloads")
+    print(f"  B={Bp}: kernels {sum(len(g) for g in runs['cuda'][0])} "
+          f"payloads, plain versions {sum(len(g) for g in runs['cpu'][0])}; "
+          f"{'the same' if same else 'DIFFERENT'}")
+    if failures:
+        raise RuntimeError("phase 13: " + "; ".join(failures))
+    return launches, out
+
+
+def _cycle_stream(params, rng, B, device):
+    """A cyclic [B, period * CHUNK] stream: one 16-byte frame per channel
+    at a random phase (wrapping), as ``bench.py --family blind`` builds
+    it, so frames close on every feed in steady state."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    payloads = _messages(rng, B, SOFT_PAYLOAD)
+    sigs = soft_fsk.encode_frames_batch(params, payloads, device=device)
+    T_f = sigs.shape[1]
+    period = -(-T_f // CHUNK) + 3
+    T = period * CHUNK
+    offs = torch.from_numpy(rng.integers(0, T, B)).to(device)
+    idx = (torch.arange(T, device=device)[None, :] - offs[:, None]) % T
+    vals = torch.gather(sigs, 1, idx.clamp_max(T_f - 1))
+    return payloads, torch.where(idx < T_f, vals, 0.0), period
+
+
+def phase_blind_timings(device, rng, card):
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import cumsum0
+    from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+    from webaudio_modem_tpu_torch.sim import make_device_awgn
+    from webaudio_modem_tpu_torch.utils.trace import metrics
+
+    params = _soft_params()
+    timings = {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(14)
+    for n, B in CSUM_SHAPES:
+        x = torch.randn((n, B), generator=gen, device=device)
+        n_bytes, n_ops = _csum_bound(n, B)
+        timings[f"cumsum0_{n}"] = _timing(
+            f"[{n}, {B}]", _cuda_ms(lambda: cumsum0.csum0(x), 20),
+            _cuda_ms(lambda: cumsum0.csum0_plain(x), 1), n_bytes, n_ops,
+            library_ms=_cuda_ms(lambda: torch.cumsum(x, 0), 20))
+        _print_timing("cumsum0", timings[f"cumsum0_{n}"], card)
+        del x
+
+    B = MAIN_BATCH
+    payloads, cycle, period = _cycle_stream(params, rng, B, device)
+    sig_power = float(torch.mean(soft_fsk.encode_frames_batch(
+        params, payloads[:16], device=device).double() ** 2))
+    noise_power = sig_power / 10 ** (SOFT_SNR_DB / 10)
+    rx = BlindSoftBatchReceiver(params, B, CHUNK, seed=3, device=device,
+                                channel_fn=make_device_awgn(noise_power))
+    quanta = [cycle[:, j * CHUNK:(j + 1) * CHUNK] for j in range(period)]
+    wrong = delivered = 0
+
+    def feeds(n):
+        nonlocal wrong, delivered
+        for j in range(n):
+            for ch, pl in rx.feed(quanta[rx._fed % period]):
+                delivered += 1
+                wrong += pl != payloads[ch]
+
+    feeds(2 * period)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics.reset()
+    walls = {}
+    for n_cycles in (2, 4):
+        t0 = time.perf_counter()
+        feeds(n_cycles * period)
+        torch.cuda.synchronize()
+        walls[n_cycles] = time.perf_counter() - t0
+    per_feed_ms = (walls[4] - walls[2]) / (2 * period) * 1e3
+    channels = B * AUDIO_S_PER_CHUNK / (per_feed_ms / 1e3)
+    if wrong or delivered < 6 * B:
+        raise RuntimeError(f"blind steady state: {wrong} wrong, "
+                           f"{delivered} delivered over {8 * period} feeds")
+    snap = metrics.snapshot()["timings"]
+    stages = {k.split(".", 1)[1]: v["mean_ms"] for k, v in snap.items()
+              if k.startswith("blind_rx.")}
+    timings["feed"] = {"per_feed_ms": per_feed_ms,
+                       "realtime_channels": channels,
+                       "walls_s": walls, "host_stage_ms": stages,
+                       "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    print(f"  blind feed B={B}, 16-byte frames at {SOFT_SNR_DB:g} dB, cyclic "
+          f"period {period} quanta: {per_feed_ms:.3f} ms host wall per feed "
+          f"(slope of 2 and 4 cycles: {walls[2]:.3f} / {walls[4]:.3f} s), "
+          f"{channels:,.0f} realtime channels; {delivered} payloads, "
+          f"{wrong} wrong; peak {timings['feed']['peak_mib']:.1f} MiB "
+          f"[{card}]")
+    print("  host stages, mean ms per feed: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # the device programs alone
+    j = rx._fed
+    x = quanta[j % period]
+    timings["detector_ms"] = _cuda_ms(
+        lambda: rx._detect(x, j * rx._n_ds, (j % rx._n_slots) * rx._n_ds), 20)
+    t_rel, b_rel, act = _program_args(rx, device)
+    timings["header_prog_ms"] = _cuda_ms(
+        lambda: rx._header_prog(1, t_rel, act), 10)
+    timings["body_prog_ms"] = _cuda_ms(
+        lambda: rx._body_prog(SOFT_PAYLOAD, 1, b_rel, act), 10)
+    print(f"  detector {timings['detector_ms']:.3f} ms per quantum, header "
+          f"program {timings['header_prog_ms']:.3f} ms, body program "
+          f"({SOFT_PAYLOAD} B) {timings['body_prog_ms']:.3f} ms, all "
+          f"{B} channels active (CUDA events) [{card}]")
+    for name, call in (("header", lambda: rx._header_prog(1, t_rel, act)),
+                       ("body", lambda: rx._body_prog(SOFT_PAYLOAD, 1, b_rel,
+                                                      act))):
+        enq = done = 0.0
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enq += (t1 - t0) * 1e3 / 5
+            done += (time.perf_counter() - t0) * 1e3 / 5
+        timings[f"{name}_prog_host"] = {"enqueue_ms": enq, "done_ms": done}
+        print(f"  {name} program alone: host enqueue {enq:.3f} ms, enqueue "
+              f"to done {done:.3f} ms (host clock) [{card}]")
+
+    # no call inside feed may wait for the device: PyTorch's sync debug
+    # mode raises on the synchronizing calls it knows of (not every kind)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feeds(period)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"  sync debug mode 'error' over {period} feeds: no synchronizing "
+          "call inside feed")
+    try:
+        _profile(f"blind feed B={B}", lambda: feeds(period), period,
+                 per_feed_ms, card)
+        timings["host_ops"] = _host_ops(f"blind feed B={B}",
+                                        lambda: feeds(period), period)
+    except RuntimeError as exc:     # a measurement, not a check
+        print(f"  profile: torch.profiler failed: {exc}")
+    return timings
+
+
+def _host_ops(label, run, calls, top=8):
+    """The host side of ``run()`` (``calls`` calls) under torch.profiler,
+    CPU only: kernel launches per call and the operators with the most
+    self CPU time, with their counts per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    rows = sorted(((e.self_cpu_time_total, e.key, e.count)
+                   for e in prof.key_averages()), reverse=True)
+    launches = sum(c for _, k, c in rows if k == "cudaLaunchKernel")
+    total_ms = sum(r[0] for r in rows) / 1e3 / calls
+    print(f"  host ops {label}: {launches / calls:.0f} kernel launches and "
+          f"{total_ms:.3f} ms of operator self CPU time per call")
+    for us, key, count in rows[:top]:
+        print(f"    {us / 1e3 / calls:8.4f} ms/call  {count / calls:7.1f} "
+              f"calls  {key[:60]}")
+    return {"launches_per_call": launches / calls,
+            "self_cpu_ms_per_call": total_ms,
+            "top": [(key, us / 1e3 / calls, count / calls)
+                    for us, key, count in rows[:top]]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1106,6 +1650,12 @@ def main() -> int:
     psk_launches = phase_psk_main_path(device, rng)
     print("phase 11: DBPSK timings")
     psk = phase_psk_timings(device, rng, card)
+    print("phase 12: K5 vs plain on the card")
+    max_err["cumsum0"] = phase_cumsum_vs_plain(device)
+    print("phase 13: blind acquisition and the streaming soft decoder")
+    blind_launches, blind_out = phase_blind_main_path(device, rng, card)
+    print("phase 14: blind timings")
+    blind = phase_blind_timings(device, rng, card)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib",
@@ -1116,7 +1666,8 @@ def main() -> int:
     def row(name, src, rep, t, extra):
         by_path = {"hard_fsk": hard_launches.get(name, 0),
                    "soft_fec": soft_launches.get(name, 0),
-                   "dbpsk": psk_launches.get(name, 0)}
+                   "dbpsk": psk_launches.get(name, 0),
+                   "blind": blind_launches.get(name, 0)}
         if not any(by_path.values()):
             raise RuntimeError(f"{name}: no launch on a main path")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1162,6 +1713,18 @@ def main() -> int:
              "demod_chunk_ms": {n: psk[n]["ms"] for n in (
                  "demod_chunk_B2048", "demod_chunk_B4096",
                  "demod_chunk_B2048_plain")}}),
+        row("cumsum0", "cumsum0.cu", "cumsum0.py:59",
+            blind[f"cumsum0_{CSUM_SHAPES[1][0]}"],
+            {"other_shapes": [
+                {k: blind[f"cumsum0_{n}"][k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+                for n, _ in (CSUM_SHAPES[0], CSUM_SHAPES[2])],
+             "blind_feed": {k: blind["feed"][k] for k in (
+                 "per_feed_ms", "realtime_channels", "peak_mib")},
+             "blind_programs_ms": {k: blind[k] for k in (
+                 "detector_ms", "header_prog_ms", "body_prog_ms")},
+             "blind_main_path": blind_out}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,9 +23,12 @@ from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.models.farm import ModemFarm
 from webaudio_modem_tpu_torch.models.fsk import FSKCore
 from webaudio_modem_tpu_torch.models.psk import PSKConfig, PSKCore
+from webaudio_modem_tpu_torch.models.soft_modem import SoftModemCore
 from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod, psk, soft_fsk
-from webaudio_modem_tpu_torch.ops.kernels import (_build, align, fsk_framing,
-                                                  fsk_seq, psk_seq, viterbi)
+from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
+                                                  fsk_framing, fsk_seq,
+                                                  psk_seq, viterbi)
+from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -71,8 +74,22 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     n, rest = proc.stdout.strip().split(" ", 1)
     assert rest == "modules clean"
-    # the soft slice's modules are among those walked
-    assert int(n) >= 20, proc.stdout
+    # the soft and acquisition slices' modules are among those walked
+    assert int(n) >= 25, proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "webaudio_modem_tpu_torch.ops.soft_blind",
+    "webaudio_modem_tpu_torch.ops.kernels.cumsum0",
+    "webaudio_modem_tpu_torch.models.soft_modem",
+    "webaudio_modem_tpu_torch.sim", "webaudio_modem_tpu_torch.sim.channels"])
+def test_new_modules_are_walked_behind_the_blocker(module):
+    code = _BLOCKED_IMPORTS.replace(
+        'print(len(names), "modules clean")',
+        f'assert {module!r} in names or {module!r} == pkg.__name__, names\n'
+        'print(len(names), "modules clean")')
+    proc = _run(code, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("fn", [
@@ -81,6 +98,9 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
     fec.viterbi_decode_soft, fec.viterbi_decode_bits, fec.decode_bytes,
     soft_fsk.encode_frame_signal, soft_fsk.encode_frames_batch,
     soft_fsk.decode_frames_batch, soft_fsk.decode_frames_batch_async,
+    soft_fsk.decode_frame_signal, soft_fsk.decode_frame_chunks,
+    soft_fsk.SoftFrameDecoder.__init__, fsk_demod.soft_stream,
+    BlindSoftBatchReceiver.__init__, SoftModemCore.__init__,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -100,6 +120,11 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
             params, torch.zeros((1, 64)), 4),
         lambda: soft_fsk.encode_frames_batch(params, [b"abcd"]),
         lambda: fec.viterbi_decode_bits(np.zeros(12, np.uint8), 0),
+        lambda: BlindSoftBatchReceiver(params, 2, 4800),
+        lambda: soft_fsk.SoftFrameDecoder(params),
+        lambda: soft_fsk.decode_frame_signal(params, np.zeros(64)),
+        lambda: fsk_demod.soft_stream(params, np.zeros(64)),
+        lambda: SoftModemCore(FSKConfig()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
@@ -115,11 +140,11 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 def _launches():
     return (fsk_seq.launches, fsk_framing.launches, viterbi.launches,
-            align.launches, psk_seq.launches)
+            align.launches, psk_seq.launches, cumsum0.launches)
 
 
 @pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "viterbi",
-                                    "align", "psk_seq"])
+                                    "align", "psk_seq", "cumsum0"])
 def test_wrappers_raise_off_cpu(kernel):
     """Tensors on a device that is neither the CPU nor CUDA are refused,
     not handed to the plain version."""
@@ -138,6 +163,8 @@ def test_wrappers_raise_off_cpu(kernel):
                 params, ints, flts, state.bit_fill, z.bfloat16(), z, z, z, 4)
         elif kernel == "viterbi":
             viterbi.decode(z, z, 2)
+        elif kernel == "cumsum0":
+            cumsum0.csum0(z)
         elif kernel == "psk_seq":
             st = psk.init_state(params, 4, "meta")
             psk_seq.seq(params, 0, st.front, st.ds_acc, st.ring,
@@ -156,6 +183,22 @@ def test_wrappers_refuse_mixed_devices():
         fsk_seq.seq(params, 0, state.front, state.ds_acc,
                     state.bit_tail[-ds:],
                     torch.zeros((8, 4), device="meta"))
+
+
+def test_k5_refuses_cuda_without_a_card_and_mixed_devices(monkeypatch):
+    """K5's wrapper launches its kernel or raises: a CUDA tensor without a
+    usable card raises (no plain fallback); so do tensors on two devices
+    at its check."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fake_cuda = torch.zeros((8, 4), device="meta")
+    before = cumsum0.launches
+    with pytest.raises(ValueError, match="CPU tensors"):
+        cumsum0.csum0(fake_cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        _build.use_kernel(torch.zeros((8, 4)), fake_cuda)
+    with pytest.raises(RuntimeError, match="no fallback"):
+        _build.check_cuda(torch.device("cuda", 0))
+    assert cumsum0.launches == before
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -12,6 +12,8 @@ find:
   models.config       FSKConfig / FSKParams (same fields and derivation)
   models.fsk          FSKCore, the B=1 facade
   models.psk          PSKConfig / PSKCore, the DBPSK facade
+  models.soft_modem   SoftModemCore, the soft-FEC facade (streaming
+                      SoftFrameDecoder behind the FSKCore surface)
   models.farm         ModemFarm, B independent streaming channels (FSK
                       or DBPSK, by the config's type)
   ops.filters         Butterworth biquad design
@@ -19,12 +21,16 @@ find:
   ops.fsk_demod       streaming hard-decision demodulator (demod_chunk)
   ops.psk             DBPSK modulator and demodulator (demod_chunk)
   ops.fec             K=7 rate-1/2 convolutional code, batched Viterbi
-  ops.soft_fsk        soft-decision FEC frames: encode, farm batch decode
+  ops.soft_fsk        soft-decision FEC frames: encode, farm batch decode,
+                      the streaming single-channel decoder
+  ops.soft_blind      BlindSoftBatchReceiver, blind batched acquisition
+  sim                 channel simulators (numpy, and make_device_awgn)
   ops.kernels         hand-written Hopper kernels (csrc/*.cu) and their
                       plain PyTorch versions
 
-Ported so far: the streaming hard-FSK path, the farm soft-FEC decode
-and DBPSK (ROADMAP.md, queue 1).  The entry points run on the card
+Ported so far: the streaming hard-FSK path, the farm soft-FEC decode,
+DBPSK and soft-frame acquisition (the blind receiver and the streaming
+soft decoder; ROADMAP.md, queue 1).  The entry points run on the card
 unless the caller passes ``device="cpu"``.  Importing this package
 imports torch and numpy only, never the JAX package; kernels are built
 with nvcc the first time a CUDA tensor reaches them.

@@ -1,5 +1,5 @@
-"""Modem models of the port: configuration, FSKCore, PSKCore and
-ModemFarm.
+"""Modem models of the port: configuration, FSKCore, PSKCore,
+SoftModemCore and ModemFarm.
 
 The names below are exported lazily (``from webaudio_modem_tpu_torch
 .models import PSKCore`` imports ``models.psk`` then), so importing this
@@ -10,7 +10,7 @@ package imports nothing on its own and the ops modules that import
 _EXPORTS = {
     "FSKConfig": "config", "FSKParams": "config", "FSKCore": "fsk",
     "ModemFarm": "farm", "PSKConfig": "psk", "PSKCore": "psk",
-    "DEFAULT_PSK_CONFIG": "psk",
+    "DEFAULT_PSK_CONFIG": "psk", "SoftModemCore": "soft_modem",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -14,7 +14,9 @@ stages per chunk:
        ``ops/kernels/fsk_framing.py``;
   then the SignalQuality window refresh at the last sync fire.
 Stages C and D and the quality refresh are ``sync_and_frame``, which the
-DBPSK chunk step (``ops/psk.py``) shares.
+DBPSK chunk step (``ops/psk.py``) shares.  ``soft_stream`` is the
+soft-value surface of the streaming soft decoder: K1 with every plane
+and no R.
 
 ``demod_chunk`` runs K1 and K2 on CUDA tensors and their plain PyTorch
 versions on CPU tensors; ``plain=True`` forces the plain versions on
@@ -23,9 +25,11 @@ any device (used to compare and time the kernels against them).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Mapping, Tuple
 
 import numpy as np
@@ -33,6 +37,7 @@ import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, fsk_seq
+from webaudio_modem_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -537,3 +542,84 @@ def quality_from_state(params: FSKParams, state: DemodState,
                    np.clip(1.0 - jitter / (separation / 4.0), 0.0, 1.0),
                    0.0)
     return ber, freq, jitter, eye
+
+
+# Build the quality calibration ahead of the first SignalQuality query (a
+# facade's configure() calls ``warm_quality_calibration``); tests may pin
+# it off.
+AUTO_WARM_QUALITY = True
+_warm_started: set = set()
+_warm_threads: list = []
+
+
+def _join_warm_threads() -> None:
+    """atexit: wait out background builds still running, so none is torn
+    down mid-computation at interpreter exit."""
+    for t in _warm_threads:
+        t.join(timeout=30)
+    _warm_threads.clear()
+
+
+def warm_quality_calibration(params: FSKParams) -> None:
+    """Start building ``_quality_calibration(params)`` (lru-cached) on a
+    daemon thread, so the first ``get_signal_quality`` does not pay for
+    it.  Idempotent per configuration."""
+    if params in _warm_started:
+        return
+    _warm_started.add(params)
+
+    def build():
+        try:
+            _quality_calibration(params)
+        except Exception:  # noqa: BLE001 — the lazy path retries it
+            _warm_started.discard(params)
+
+    if not _warm_threads:
+        atexit.register(_join_warm_threads)
+    t = threading.Thread(target=build, daemon=True, name="wam-quality-warm")
+    _warm_threads.append(t)
+    t.start()
+
+
+# ---------------------------------------------------------------------------
+# Soft-value surface
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SoftOut:
+    """Result of ``soft_stream``: time-major numpy planes [n_ds, B] and the
+    carry for the next chunk."""
+
+    bits: np.ndarray     # hard-sliced bits (float32 0/1)
+    amps: np.ndarray     # I/Q amplitudes
+    softs: np.ndarray    # analog post-LPF discriminator
+    state: DemodState    # carry: feed back with the next chunk
+    ds_phase: int        # carry: downsample phase of the next chunk
+
+
+def soft_stream(params: FSKParams, samples, state: DemodState = None,
+                ds_phase: int = 0, device="cuda") -> SoftOut:
+    """The soft-value surface (the FEC memo's SoftDecisionDemodulator): K1
+    with every plane and no R, on ``device``.
+
+    ``samples`` [B, T] or [T] (numpy or a tensor).  Returns numpy planes
+    [n_ds, B]: ``softs`` is the analog discriminator whose sign (times the
+    polarity) is the hard bit.  Streaming: pass ``out.state`` and
+    ``out.ds_phase`` back with the next chunk; the concatenated planes
+    equal one whole-signal call."""
+    device = resolve_device(device)
+    if not isinstance(samples, torch.Tensor):
+        samples = torch.from_numpy(np.array(samples, np.float32))
+    x = samples.to(device=device, dtype=torch.float32)
+    if x.dim() == 1:
+        x = x[None]
+    if state is None:
+        state = init_state(params, x.shape[0], device)
+    front, ds_acc, bits, amps, softs, _ = fsk_seq.seq(
+        params, ds_phase, state.front, state.ds_acc, None,
+        x.t().contiguous(), emit_rsum=False)
+    # one copy to the host for the three planes
+    planes = torch.stack([bits.to(torch.float32), amps, softs]).cpu().numpy()
+    return SoftOut(planes[0], planes[1], planes[2],
+                   state.replace(front=front, ds_acc=ds_acc),
+                   (ds_phase + x.shape[1]) % params.downsample_ratio)

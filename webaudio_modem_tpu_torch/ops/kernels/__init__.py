@@ -2,8 +2,8 @@
 
 Each kernel module holds a wrapper (``fsk_seq.seq``,
 ``fsk_framing.stage_d_compact``, ``viterbi.decode``,
-``align.aligned_wsum``, ``psk_seq.seq``) and its plain PyTorch version
-(``*_plain``).  A
+``align.aligned_wsum``, ``cumsum0.csum0``, ``psk_seq.seq``) and its plain
+PyTorch version (``*_plain``).  A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel built from ``csrc/`` or raises.  Importing these
 modules builds nothing: ``_build.library(name)`` runs nvcc the first

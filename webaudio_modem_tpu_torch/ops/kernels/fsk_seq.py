@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKParams
-from webaudio_modem_tpu_torch.ops.kernels import _build
+from webaudio_modem_tpu_torch.ops.kernels import _build, cumsum0
 
 N_FRONT = 20
 N_SHARED = 15      # rows of the full-rate front end, shared with K6
@@ -233,15 +233,11 @@ def seq_plain(params: FSKParams, ds_phase: int, front: torch.Tensor,
 
 
 def csum_strict(softs: torch.Tensor) -> torch.Tensor:
-    """Inclusive f32 running sum over the rows, one row at a time from 0
-    (``torch.cumsum`` on float data accumulates in another order: f64 on
-    the CPU, a parallel scan on the card)."""
-    out = torch.empty_like(softs)
-    acc = torch.zeros_like(softs[0]) if len(softs) else None
-    for t in range(softs.shape[0]):
-        acc = acc + softs[t]
-        out[t] = acc
-    return out
+    """Inclusive f32 running sum over the rows, one row at a time from 0:
+    K5's plain version without its zero row (``torch.cumsum`` on float
+    data accumulates in another order: f64 on the CPU, a parallel scan on
+    the card)."""
+    return cumsum0.csum0_plain(softs)[1:]
 
 
 def _planes(params, bits, amps, softs, ring0, B, dev, flags):

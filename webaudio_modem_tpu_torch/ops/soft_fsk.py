@@ -26,10 +26,19 @@ path of ``bench.py --family soft``) and the frame builders:
       Nothing in it waits for the device: no ``.item()``, no branch on
       a tensor, no copy to the host before the packed plane.
 
+The header and body helpers also serve the blind receiver
+(``ops/soft_blind.py``), which hands them windows of its soft ring
+prefix-summed by K5 (``_csum0``), a ``top_k`` of its own and no
+payload length (``_select_candidate(max_len=...)``).
+
+The streaming single-channel path, ``decode_frame_signal``,
+``SoftFrameDecoder`` and ``decode_frame_chunks``, runs K1 through
+``fsk_demod.soft_stream`` and the Viterbi (K3) per sync candidate; the
+rest of it is numpy on the host, as in the reference.
+
 The Reed-Solomon outer code (``rs_parity``) and the block body codes
 (``body_code``) belong to slice E of the port (ROADMAP queue 1, item
-14) and raise ``NotImplementedError``; the streaming
-``SoftFrameDecoder`` and ``decode_frame_signal`` come later (ROADMAP).
+14) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod
-from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq
+from webaudio_modem_tpu_torch.ops.kernels import align, cumsum0, fsk_seq
 from webaudio_modem_tpu_torch.utils.crc16 import CRC16, TABLE
 from webaudio_modem_tpu_torch.utils.device import resolve_device
 from webaudio_modem_tpu_torch.utils.trace import metrics
@@ -196,21 +205,32 @@ def _body_window(params: FSKParams, n_ds: int, b_starts: torch.Tensor,
                                 polarity=params.polarity, virt0=True)
 
 
+def _csum0(softs: torch.Tensor) -> torch.Tensor:
+    """Zero-prefixed f32 prefix sum [n + 1, B] of a soft plane [n, B], in
+    strict row order: K5 (``ops/kernels/cumsum0.py``) on the card, its
+    plain version on the CPU.  ``_csum0(x)[1:]`` is a contiguous view that
+    equals K1's inclusive cumsum, the form the header and body helpers
+    read."""
+    return cumsum0.csum0(softs)
+
+
 def _header_llrs(params: FSKParams, csum: torch.Tensor,
                  t_peak: torch.Tensor, gate: torch.Tensor,
-                 body_bits_n: int):
+                 body_bits_n: int, top_k: int = HEADER_TOP_K):
     """The header-candidate LLR windows: grid starts around ``t_peak``
     ([B] int), one aligned window per channel (K4 at stride 1 over the
     inclusive cumsum ``csum`` [n_ds, B]), the per-offset LLRs as strided
-    reads of it, and pruning to the ``HEADER_TOP_K`` best by the
+    reads of it, and pruning to the ``top_k`` best by the
     alignment-coherence score sum_j |llr[o, j]| (invalid candidates rank
     last; ties keep the lower offset, as the reference's iterative
-    argmax).
+    argmax).  ``top_k`` 0, or not below the grid size, keeps the whole
+    grid in grid order.  ``body_bits_n`` 0 asks only for the header span
+    inside the stream (the blind receiver learns the length from the
+    header).
 
     Returns (starts [B, n_sel] int64, llrs [B, n_sel, HEADER_CODED_BITS]
     f32, valid [B, n_sel] bool), candidates in descending score order
-    when pruned (grids of HEADER_TOP_K offsets or fewer are kept
-    whole)."""
+    when pruned."""
     ds = params.ds_samples_per_bit
     h_bits = HEADER_CODED_BITS
     grid = _grid_offsets(params)
@@ -233,12 +253,12 @@ def _header_llrs(params: FSKParams, csum: torch.Tensor,
             + ds * torch.arange(h_bits, device=dev)[None, :])
     llrs = al[rows].permute(2, 0, 1)               # [B, n_off, h_bits]
 
-    if HEADER_TOP_K < n_off:
+    if top_k and top_k < n_off:
         score = llrs.abs().sum(-1)                  # [B, n_off]
         score = torch.where(valid, score,
                             torch.full_like(score, float("-inf")))
         picks = []
-        for _ in range(HEADER_TOP_K):
+        for _ in range(top_k):
             idx = torch.argmax(score, dim=-1)       # first maximum
             picks.append(idx)
             score = score.scatter(
@@ -254,12 +274,12 @@ def _header_llrs(params: FSKParams, csum: torch.Tensor,
 
 def _candidate_headers(params: FSKParams, csum: torch.Tensor,
                        t_peak: torch.Tensor, gate: torch.Tensor,
-                       body_bits_n: int):
+                       body_bits_n: int, top_k: int = HEADER_TOP_K):
     """``_header_llrs`` then ONE batched Viterbi over the surviving
     (channel x offset) candidates.  Returns (starts, headers [B, n_sel,
     32] uint8, valid)."""
     starts, llrs, valid = _header_llrs(params, csum, t_peak, gate,
-                                       body_bits_n)
+                                       body_bits_n, top_k)
     B, n_sel, h_bits = llrs.shape
     headers = fec._viterbi_core(
         llrs.reshape(B * n_sel, h_bits // 2, 2),
@@ -312,23 +332,31 @@ def _batch_body_stage(params: FSKParams, csum: torch.Tensor,
 
 
 def _select_candidate(headers: torch.Tensor, starts: torch.Tensor,
-                      valid: torch.Tensor, payload_len: int):
+                      valid: torch.Tensor, payload_len=None, max_len=None):
     """LEN/CRC header selection over the candidate axis.
 
-    Candidates must pass their own CRC16 and carry LEN == ``payload_len``.
-    Returns (found [B] bool, st [B] int64 — the chosen candidate's grid
-    start); the first passing candidate wins."""
+    Candidates must pass their own CRC16; ``payload_len`` (the farm
+    decode: every frame has that length) or ``max_len`` (the blind
+    receiver: the length comes from the header, bounded) further gate the
+    LEN field.  Returns (found [B] bool, ln [B] int64 — the chosen
+    candidate's decoded length, 0 when none is found, st [B] — its grid
+    start, in ``starts``' type); the first passing candidate wins."""
     hb = headers.to(torch.int32)                      # [B, n_sel, 32]
     w16 = 1 << torch.arange(15, -1, -1, dtype=torch.int32,
                             device=hb.device)
     ln = (hb[..., :16] * w16).sum(-1)
     crc = (hb[..., 16:32] * w16).sum(-1)
-    ok = (valid & (_crc16_bits_device(hb[..., :16]) == crc)
-          & (ln == payload_len))
+    ok = valid & (_crc16_bits_device(hb[..., :16]) == crc)
+    if payload_len is not None:
+        ok = ok & (ln == payload_len)
+    if max_len is not None:
+        ok = ok & (ln <= max_len)
     found = ok.any(1)
-    chosen = torch.argmax(ok.to(torch.int32), dim=1)  # first True
-    st = torch.take_along_dim(starts, chosen[:, None], dim=1)[:, 0]
-    return found, st
+    chosen = torch.argmax(ok.to(torch.int32), dim=1)[:, None]  # first True
+    st = torch.take_along_dim(starts, chosen, dim=1)[:, 0]
+    # where no candidate passes, the chosen one fails: its LEN reads 0
+    ln_sel = torch.take_along_dim(torch.where(ok, ln, 0), chosen, dim=1)
+    return found, ln_sel[:, 0], st
 
 
 def _pack_bodies(bodies: torch.Tensor, payload_len: int,
@@ -401,7 +429,8 @@ def _decode_frames_fused(params: FSKParams, samples: torch.Tensor,
         emit_csum=True)
     starts, headers, valid = _batch_header_stage(
         params, csum, rsum, _body_coded_bits(payload_len))
-    found, st = _select_candidate(headers, starts, valid, payload_len)
+    found, _, st = _select_candidate(headers, starts, valid,
+                                     payload_len=payload_len)
     b_starts = torch.where(found, st + HEADER_CODED_BITS * ds,
                            torch.zeros_like(st))
     bodies = _batch_body_stage(params, csum, b_starts, payload_len)
@@ -465,3 +494,302 @@ def decode_frames_batch_async(params: FSKParams, samples,
         return results
 
     return finalize
+
+
+# ---------------------------------------------------------------------------
+# Streaming single-channel decode
+# ---------------------------------------------------------------------------
+
+def _bit_llrs(params: FSKParams, softs: np.ndarray, start: int,
+              n_bits: int):
+    """Windowed-sum LLRs for ``n_bits`` raw bits on the ds grid starting at
+    soft-stream index ``start`` (None when the span leaves the stream)."""
+    ds = params.ds_samples_per_bit
+    end = start + n_bits * ds
+    if start < 0 or end > len(softs):
+        return None
+    win = softs[start:end].reshape(n_bits, ds)
+    # polarity: positive discriminator = mark only for mark < space
+    return np.float32(params.polarity) * win.sum(axis=1)
+
+
+def _payload_from_body_llr(b_llr, ln: int, device):
+    """Body LLRs -> the CRC-checked payload, or None: the Viterbi (K3 on
+    the card), then the CRC16 gate."""
+    body = fec.bits_to_bytes(fec.viterbi_decode_soft(
+        b_llr, 8 * (ln + 2), device=device))
+    payload = body[:ln]
+    if CRC16.calculate(payload) == ((body[ln] << 8) | body[ln + 1]):
+        return payload
+    return None
+
+
+def _grid_candidates(params: FSKParams, t_peak: int, llrs):
+    """The header candidates of a sync peak: (LLRs, grid start) for every
+    grid offset whose header span ``llrs(start)`` can read."""
+    cand = []
+    for off in (t_peak + 1 + _grid_offsets(params)).tolist():
+        llr = llrs(off)
+        if llr is not None:
+            cand.append((llr, off))
+    return cand
+
+
+def _valid_lengths(params: FSKParams, cand, device):
+    """Decode the candidates' headers in ONE batched Viterbi; yield
+    (grid start, LEN) of each whose header CRC passes, in grid order."""
+    headers = fec.viterbi_decode_soft(np.stack([llr for llr, _ in cand]),
+                                      8 * HEADER_PLAIN, device=device)
+    for k, (_, off) in enumerate(cand):
+        header = fec.bits_to_bytes(headers[k])
+        if CRC16.calculate(header[:2]) == ((header[2] << 8) | header[3]):
+            yield off, (header[0] << 8) | header[1]
+
+
+def decode_frame_signal(params: FSKParams, samples, rs_parity: int = 0,
+                        body_code=None, device="cuda"):
+    """The memo's whole receive flow on one signal ([T] samples): soft
+    demodulation (K1), sync correlation over the sliced bits, the header
+    at every grid offset around the best few peaks (one batched Viterbi
+    each), then the body at each CRC-valid header's grid.  Returns the
+    CRC-checked payload, or None when no valid frame is found."""
+    _check_rs(0, rs_parity, body_code)
+    device = resolve_device(device)
+    out = fsk_demod.soft_stream(params, np.asarray(samples, np.float32),
+                                device=device)
+    bits = out.bits[:, 0]
+    softs = out.softs[:, 0].astype(np.float64)
+
+    # 相関法: block-sum pattern correlation over the sliced bits
+    ds = params.ds_samples_per_bit
+    W = params.sync_window
+    ext = np.concatenate([np.zeros(W, np.float32), bits])
+    ratios = fsk_demod._sync_ratios_cumsum(
+        params, torch.from_numpy(ext)[:, None])[:, 0].numpy()
+    order = np.argsort(ratios)[::-1]
+    threshold = params.config.sync_threshold
+    for t_peak in order[:8]:            # a few best sync candidates
+        if ratios[t_peak] <= threshold:
+            break
+        # the bit-grid origin relative to the peak is searched, not
+        # assumed: the header CRC selects the right grid
+        cand = _grid_candidates(
+            params, int(t_peak),
+            lambda off: _bit_llrs(params, softs, off, HEADER_CODED_BITS))
+        if not cand:
+            continue
+        for off, ln in _valid_lengths(params, cand, device):
+            b_llr = _bit_llrs(params, softs, off + HEADER_CODED_BITS * ds,
+                              _body_coded_bits(ln))
+            if b_llr is None:
+                continue
+            payload = _payload_from_body_llr(b_llr, ln, device)
+            if payload is not None:
+                return payload
+    return None
+
+
+class SoftFrameDecoder:
+    """The memo's receive flow, streaming: feed arbitrary sample chunks;
+    frames decode as soon as their span has arrived, including frames
+    that span chunk boundaries.
+
+    The demod carry goes through ``fsk_demod.soft_stream`` (chunking is
+    bit-exact), and the decoder keeps the unconsumed tail of the
+    sliced-bit and soft streams.  Sync candidates are tried in temporal
+    order; one whose coded span has not fully arrived stays pending, one
+    whose span has arrived and failed every grid offset is cached as dead.
+    Match ratios are computed once per position: each feed correlates W
+    of kept history plus the new bits (``_sync_ratios_cumsum``; the
+    ratios are exact integers over W, so the cached values equal a
+    whole-signal pass).  Decoded payloads equal ``decode_frame_signal``'s
+    on the whole signal.  K1 and the Viterbi (K3) run on ``device``."""
+
+    def __init__(self, params: FSKParams, max_candidates_per_scan: int = 64,
+                 rs_parity: int = 0, body_code=None, device="cuda"):
+        _check_rs(0, rs_parity, body_code)
+        self._params = params
+        self._device = resolve_device(device)
+        self._state = None
+        self._ds_phase = 0
+        self._bits = np.zeros((0,), np.float32)
+        self._softs = np.zeros((0,), np.float64)
+        self._amps = np.zeros((0,), np.float64)
+        self._abs0 = 0        # absolute ds index of _bits[0]
+        self._scan_from = 0   # absolute ds index: consumed below this
+        self._ratio = np.zeros((0,), np.float32)  # cached match ratios
+        self._ratio_first = 0  # absolute ds index of _ratio[0]
+        self._failed: set = set()  # dead candidate peaks (absolute)
+        self._max_cand = max_candidates_per_scan
+        self.frames_decoded = 0
+        # (peak_ratio, soft_sum, soft_sumsq, count, amp_mean, amp_var)
+        # over the sync window of the last decoded frame, for
+        # SoftModemCore.get_signal_quality
+        self.last_sync_quality = None
+
+    def reset(self) -> None:
+        self.__init__(self._params, self._max_cand, device=self._device)
+
+    def feed(self, samples) -> list:
+        """Ingest one chunk ([T] float32) and return the payloads it
+        completed (possibly none)."""
+        samples = np.asarray(samples, np.float32)
+        if samples.ndim != 1:
+            raise ValueError("SoftFrameDecoder.feed expects a [T] chunk")
+        if len(samples):
+            out = fsk_demod.soft_stream(self._params, samples, self._state,
+                                        self._ds_phase, device=self._device)
+            self._state, self._ds_phase = out.state, out.ds_phase
+            self._bits = np.concatenate([self._bits, out.bits[:, 0]])
+            self._softs = np.concatenate(
+                [self._softs, out.softs[:, 0].astype(np.float64)])
+            self._amps = np.concatenate(
+                [self._amps, out.amps[:, 0].astype(np.float64)])
+        self._extend_ratios()
+        frames = self._scan()
+        self._trim()
+        return frames
+
+    # -- internals --------------------------------------------------------
+
+    def _extend_ratios(self) -> None:
+        """Correlate the not yet correlated tail of the bit stream and
+        append it to the cached ratios.  Position t reads bits [t - W, t]
+        only, so positions [s, e) need bits [s - W, e); history below the
+        stream start is zero, as in the whole-signal path."""
+        W = self._params.sync_window
+        s = self._ratio_first + len(self._ratio)
+        e = self._abs0 + len(self._bits)
+        n = e - s
+        if n <= 0:
+            return
+        lead = max(0, self._abs0 - (s - W))
+        assert lead == 0 or self._abs0 == 0, \
+            "trim dropped correlation history"
+        ext = np.zeros((W + n,), np.float32)
+        ext[lead:] = self._bits[s - W + lead - self._abs0:e - self._abs0]
+        r = fsk_demod._sync_ratios_cumsum(
+            self._params, torch.from_numpy(ext)[:, None])[:, 0].numpy()
+        self._ratio = np.concatenate([self._ratio, r])
+
+    def _scan(self) -> list:
+        """Try sync candidates in temporal order (earliest first): a
+        decoded frame advances ``_scan_from`` past its coded span, and a
+        pending candidate ends the pass (every later one is pending too),
+        so nothing decodable is ever skipped."""
+        threshold = self._params.config.sync_threshold
+        frames = []
+        while True:
+            ratios, first = self._ratio, self._ratio_first
+            if not len(ratios):
+                return frames
+            t_abs = np.arange(first, first + len(ratios))
+            ok = (t_abs >= self._scan_from) & (ratios > threshold)
+            progressed = False
+            tried = 0
+            for t_peak in t_abs[ok].tolist():
+                if t_peak in self._failed:
+                    continue
+                if tried >= self._max_cand:
+                    break  # per-feed work bound; resumes next feed
+                tried += 1
+                result, definitive = self._try_candidate(t_peak)
+                if result is not None:
+                    frames.append(result)
+                    progressed = True
+                    break  # rescan: scan_from advanced past this frame
+                if definitive:
+                    self._failed.add(t_peak)
+                else:
+                    break  # pending span: all later ones pending too
+            if not progressed:
+                return frames
+
+    def _try_candidate(self, t_peak: int):
+        """The full grid-offset search at one correlation peak.  Returns
+        (payload | None, definitive): definitive means every offset's span
+        was available and failed — never retry."""
+        params = self._params
+        ds = params.ds_samples_per_bit
+        end_abs = self._abs0 + len(self._softs)
+        # wait until the whole header grid (every offset) has arrived, so
+        # the search equals the whole-signal path's
+        if t_peak + 1 + int(_grid_offsets(params)[-1]) \
+                + HEADER_CODED_BITS * ds > end_abs:
+            return None, False
+        cand = _grid_candidates(
+            params, t_peak, lambda off: self._llrs(off, HEADER_CODED_BITS))
+        if not cand:
+            return None, True
+        definitive = True
+        for off, ln in _valid_lengths(params, cand, self._device):
+            body_bits = _body_coded_bits(ln)
+            body_start = off + HEADER_CODED_BITS * ds
+            if body_start + body_bits * ds > end_abs:
+                definitive = False  # body still arriving — retry later
+                continue
+            b_llr = self._llrs(body_start, body_bits)
+            if b_llr is None:
+                continue
+            payload = _payload_from_body_llr(b_llr, ln, self._device)
+            if payload is not None:
+                self.frames_decoded += 1
+                self._record_sync_quality(t_peak)
+                self._scan_from = body_start + body_bits * ds
+                self._failed = {t for t in self._failed
+                                if t >= self._scan_from}
+                return payload, True
+        return None, definitive
+
+    def _record_sync_quality(self, t_peak: int) -> None:
+        """Sync-window statistics of a decoded frame.  ``t_peak`` is the
+        first threshold crossing (temporal order), so re-anchor at the
+        ratio argmax within a bit period, as the quality calibration
+        does, and take the W soft samples ending there (the known
+        preamble + SFD)."""
+        ds = self._params.ds_samples_per_bit
+        W = self._params.sync_window
+        r0 = self._ratio_first
+        lo_r = max(t_peak - ds, r0)
+        hi_r = min(t_peak + ds + 1, r0 + len(self._ratio))
+        q_peak = lo_r + int(np.argmax(self._ratio[lo_r - r0:hi_r - r0]))
+        lo = max(q_peak + 1 - W, self._abs0)
+        win = self._softs[lo - self._abs0:q_peak + 1 - self._abs0]
+        awin = self._amps[lo - self._abs0:q_peak + 1 - self._abs0]
+        self.last_sync_quality = (
+            float(self._ratio[q_peak - r0]),
+            float(win.sum()), float((win ** 2).sum()), float(len(win)),
+            float(awin.mean()) if len(awin) else 0.0,
+            float(awin.var()) if len(awin) else 0.0)
+
+    def _llrs(self, start_abs: int, n_bits: int):
+        return _bit_llrs(self._params, self._softs, start_abs - self._abs0,
+                         n_bits)
+
+    def _trim(self) -> None:
+        """Bound memory: drop what the scanner can no longer reach (W of
+        correlation history + the LLR look-back)."""
+        params = self._params
+        keep_back = params.sync_window + 2 * params.ds_samples_per_bit
+        cut = self._scan_from - keep_back - self._abs0
+        if cut > 0:
+            self._bits = self._bits[cut:]
+            self._softs = self._softs[cut:]
+            self._amps = self._amps[cut:]
+            self._abs0 += cut
+        rcut = self._scan_from - self._ratio_first
+        if rcut > 0:
+            self._ratio = self._ratio[rcut:]
+            self._ratio_first += rcut
+
+
+def decode_frame_chunks(params: FSKParams, chunks, rs_parity: int = 0,
+                        body_code=None, device="cuda") -> list:
+    """Run the streaming decoder over an iterable of sample chunks and
+    return every decoded payload (the same payloads for any split)."""
+    dec = SoftFrameDecoder(params, rs_parity=rs_parity, body_code=body_code,
+                           device=device)
+    frames = []
+    for chunk in chunks:
+        frames += dec.feed(chunk)
+    return frames
