@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths through the hand-written kernels,
-which it builds with nvcc first (one nvcc per source, all at once):
+Drives the port's main paths through the hand-written kernels, which
+it builds with nvcc first (one nvcc per source, all at once):
 
   * streaming hard-decision FSK demodulation of thousands of channels
     (300 baud, mark 1270 Hz / space 1070 Hz, 48 kHz, 0.1 s chunks):
@@ -19,7 +19,15 @@ which it builds with nvcc first (one nvcc per source, all at once):
   * blind soft-frame acquisition (1200 baud, 0.1 s quanta,
     ``soft_blind.BlindSoftBatchReceiver``): K1 per quantum, then K5
     (``csrc/cumsum0.cu``), K4 and K3 in every header and body program;
-    and the streaming single-channel decoder (``SoftFrameDecoder``).
+    and the streaming single-channel decoder (``SoftFrameDecoder``);
+  * BASELINE config 2, Bell-202 BER sweeps at B=4096
+    (``sim.ber.ber_sweep`` over ``ModemFarm``, whole signals: K1, K2),
+    and after them the TPU's long-chunk route over the same signals:
+    K8 (``csrc/fsk_stage_d.cu``) through its entry point
+    ``fsk_demod.stage_d`` and the masked-sum compaction (no other entry
+    point of the port reaches K8; its launches are reported under the
+    path "tpu_route (chip_smoke)"); BASELINE config 4 (V.21 full
+    duplex), the impairment sweeps and checkpoints.
 
 Phases:
 
@@ -74,7 +82,29 @@ Phases:
  14. blind timings: K5 beside its plain version, torch.cumsum and its
      bound; the steady-state host wall per feed of a cyclic 16-byte
      stream at 8 dB (realtime channels), its host stages and a profile;
-     the detector, header and body programs alone (CUDA events).
+     the detector, header and body programs alone (CUDA events);
+ 15. K8 against its plain version, exactly (planes and carry), with
+     compact(K8) equal to K2 and two halves chained through the carry
+     equal to one call: the hard bench chunk (n_ds = 2400, B = 4096; K2
+     and K8 timed there in turns), the 128-byte Bell-202 messages at
+     10 dB (n_ds = 26,440, B = 4096; K8's row numbers, the wrapper
+     timed beside the kernel alone), an odd n_ds with syncs, bytes and
+     EODs (B = 1000), and n_ds = 0;
+ 16. BASELINE config 2: Bell-202 sweeps at 30 ... -6 dB, B = 4096, of
+     the harness's 4-byte message and a 128-byte one (maxb 148), with
+     launches counted (K1 and K2 per point and message); after the
+     sweeps, the TPU route (K1 and K8, launches counted apart) over
+     every long-sweep batch, which must decode the same bytes; the
+     golden comparator on 64 / 8 messages per point
+     (every one equal at >= 10 dB; below, each differing message decoded
+     the same by the plain versions on the CPU); 0 bit errors at 30 dB;
+     peak device memory; whole-signal K1 + sync + stage D by K2 and by
+     K8 + compaction, timed;
+ 17. V.21 full duplex both ways with and without the reference suite's
+     noise; carrier-offset and clock-skew sweeps at B = 1024 (golden
+     parity on 8 messages per point) and a soft-column point through
+     SoftModemCore; a B = 4096 farm saved after 3 chunks, restored into
+     a new farm and run on, equal to an uninterrupted run.
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
 CUDA device it fails in phase 1 and prints no result.  The line before
@@ -1578,6 +1608,522 @@ def phase_blind_timings(device, rng, card):
     return timings
 
 
+# ---------------------------------------------------------------------------
+# K8, BASELINE configs 2 (BER) and 4 (V.21), impairments, checkpoints
+# ---------------------------------------------------------------------------
+
+# BASELINE config 2: Bell-202 (1200 baud, mark 1200 / space 2200 Hz)
+BELL202 = dict(baud_rate=1200, mark_frequency=1200.0, space_frequency=2200.0)
+BER_SNRS = (30.0, 20.0, 15.0, 10.0, 5.0, 0.0, -6.0)
+BER_BATCH = 4096
+# the harness's default message (T = 3,280, maxb 11) and a 128-byte one
+# (T = 52,880, maxb 148: the shape at which the TPU took K8)
+BER_MESSAGES = {"short": b"\x55\x0f\xa3\xc1", "long": bytes(range(128))}
+GOLDEN_SUBSET = {"short": 64, "long": 8}
+IMPAIR_BATCH = 1024
+CARRIER_OFFSETS_HZ = (0.0, 120.0, 250.0)
+CLOCK_SKEWS = (0.0, 0.002, 0.01)
+# K8 per step: the state machine's ~40 operations and the packing's 6
+K8_OPS_PER_STEP = 46
+
+
+def _bell202():
+    from webaudio_modem_tpu_torch.models.config import FSKConfig
+
+    return FSKConfig(**BELL202)
+
+
+def _stage_d_inputs(params, state, x):
+    """K1's planes for the f32 [T, B] samples ``x`` from ``state`` and the
+    stage-D operands made from them: (bits, amps, ratios, sub_amps)."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_seq
+
+    ds = params.ds_samples_per_bit
+    _, _, bits, amps, _, rsum = fsk_seq.seq(
+        params, 0, state.front, state.ds_acc, state.bit_tail[-ds:], x)
+    ratios = fsk_demod._sync_ratios_from_r(params, state.r_tail, rsum)
+    return bits, amps, ratios, torch.cat([state.amp_tail, amps])
+
+
+def _route(params, x, per_step):
+    """Whole-signal stage D of f32 [B, T] samples from a fresh state: K1
+    and the sync matmul, then K2 (the port's path) or, ``per_step``, K8
+    and the masked-sum compaction (the TPU's route for long chunks).
+    Returns (bytes_out, byte_count)."""
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing
+
+    state = fsk_demod.init_state(params, x.shape[0], x.device)
+    planes = _stage_d_inputs(params, state, x.t().contiguous())
+    maxb = fsk_demod.max_bytes(params, planes[0].shape[0])
+    if per_step:
+        _, k_planes = fsk_demod.stage_d(params, state, *planes)
+        return fsk_framing.compact(*k_planes, maxb)[:2]
+    ints, flts = fsk_demod._framing_carry(params, state)
+    out = fsk_framing.stage_d_compact(params, ints, flts, state.bit_fill,
+                                      *planes, maxb)
+    return out[2], out[3]
+
+
+def _k8_bytes(n_ds, B):
+    """Bytes K8 must move: bits bf16, amps, ratios and the delayed amps
+    f32 in, the packed i32 word out, per step and channel; the carry in
+    and out and bit_fill."""
+    return n_ds * B * 18 + B * (2 * (10 + 2) * 4 + 4)
+
+
+def _k8_kernel_only(params, state, planes):
+    """A call that launches K8's kernel alone on ``planes`` into outputs
+    made once: no carry build, no unpacking of the packed plane, no
+    launch counted; to time the kernel beside its wrapper."""
+    import ctypes
+
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+    from webaudio_modem_tpu_torch.ops.kernels import _build, fsk_framing
+
+    bits = planes[0]
+    n_ds, B = bits.shape
+    ints, flts = fsk_demod._framing_carry(params, state)
+    outs = [torch.empty((fsk_framing.N_I32, B), dtype=torch.int32,
+                        device=bits.device),
+            torch.empty((fsk_framing.N_F32, B), dtype=torch.float32,
+                        device=bits.device),
+            torch.empty((n_ds, B), dtype=torch.int32, device=bits.device)]
+    p = _build.ptr
+    coef = fsk_framing._kernel_coef(params)
+    entry = fsk_framing._stage_d_entry()
+
+    def launch():
+        _build.raise_on_error(entry(
+            *map(p, planes), n_ds, B, p(ints), p(flts), p(state.bit_fill),
+            *map(p, outs), ctypes.byref(coef), _build.stream()),
+            "fsk_stage_d")
+    return launch
+
+
+def _check_k8(params, state, planes, label, need=()):
+    """K8 against its plain version on the same CUDA tensors (planes and
+    carries exactly equal), ``compact`` of its planes against K2, and two
+    halves chained through the carry against the whole call; raises
+    unless each event named in ``need`` ("bytes", "syncs", "EODs")
+    occurred.  Returns (the plain version's ms, the largest difference
+    from it)."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing
+
+    bits, amps, ratios, sub = planes
+    n_ds, B = bits.shape
+    (ints, flts), k_planes = fsk_demod.stage_d(params, state, *planes)
+    plain = []
+    plain_ms = _cuda_ms(lambda: plain.append(fsk_demod.stage_d(
+        params, state, *planes, plain=True)), 1)
+    (p_ints, p_flts), p_planes = plain[0]
+    err = max(_equal_or_raise(f"K8 {label} {name}", a, b)
+              for name, a, b in (("ints", ints, p_ints),
+                                 ("flts", flts, p_flts),
+                                 *zip(("byte_vals", "emits", "eods", "fires"),
+                                      k_planes, p_planes)))
+
+    maxb = fsk_demod.max_bytes(params, n_ds)
+    c_ints, c_flts = fsk_demod._framing_carry(params, state)
+    k2 = fsk_framing.stage_d_compact(params, c_ints, c_flts, state.bit_fill,
+                                     *planes, maxb)
+    compacted = fsk_framing.compact(*k_planes, maxb)
+    for name, a, b in (("ints", ints, k2[0]), ("flts", flts, k2[1]),
+                       *zip(("bytes_out", "byte_count", "eod_fired",
+                             "sync_fired", "fire_t"), compacted, k2[2:])):
+        _equal_or_raise(f"compact(K8) vs K2 {label} {name}", a, b)
+
+    if n_ds > 1:
+        h = n_ds // 2 + 1
+        (ints1, flts1), first = fsk_framing.stage_d(
+            params, c_ints, c_flts, state.bit_fill, bits[:h], amps[:h],
+            ratios[:h], sub[:h])
+        (ints2, flts2), second = fsk_framing.stage_d(
+            params, ints1, flts1, state.bit_fill + h, bits[h:], amps[h:],
+            ratios[h:], sub[h:])
+        for name, a, b, w in zip(("byte_vals", "emits", "eods", "fires"),
+                                 first, second, k_planes):
+            _equal_or_raise(f"K8 {label} halves {name}", torch.cat([a, b]),
+                            w)
+        _equal_or_raise(f"K8 {label} halves ints", ints2, ints)
+        _equal_or_raise(f"K8 {label} halves flts", flts2, flts)
+    torch.cuda.synchronize()
+    events = {"bytes": int(compacted[1].sum()),
+              "syncs": int(compacted[3].sum()),
+              "EODs": int(compacted[2].sum())}
+    print(f"  K8 {label} n_ds={n_ds} B={B}: planes and carry equal to the "
+          f"plain version ({plain_ms:.1f} ms); compact(K8) equal to K2 "
+          f"(maxb {maxb}); " + ", ".join(f"{k} {v}" for k, v in
+                                         events.items()))
+    missing = [k for k in need if not events[k]]
+    if missing:
+        raise RuntimeError(f"K8 {label}: no {missing} in the check")
+    return plain_ms, err
+
+
+def _time_k8_kernel_only(timing, params, state, planes, reps, card):
+    """Add K8's kernel alone (``kernel_only_ms``) to a timing made of its
+    wrapper (``ms``: the carry, the kernel and the unpacking)."""
+    launch = _k8_kernel_only(params, state, planes)
+    launch()
+    timing["kernel_only_ms"] = _cuda_ms(launch, reps)
+    print(f"  fsk_stage_d K8 {timing['shape']}: kernel alone "
+          f"{timing['kernel_only_ms']:.4f} ms, wrapper {timing['ms']:.4f} ms "
+          f"[{card}]")
+
+
+def phase_k8_vs_plain(device, rng, card):
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing
+    from webaudio_modem_tpu_torch.sim import ber
+
+    launches0 = fsk_framing.stage_d_launches
+    out = {}
+    errs = []
+    # the hard bench planes: the second 0.1 s chunk of 13-byte messages
+    params = FSKParams.from_config(_bench_config())
+    sig = fsk_mod.modulate_batch(params, _messages(rng, MAIN_BATCH, 13),
+                                 device)
+    state, _ = fsk_demod.demod_chunk(
+        params, 0, fsk_demod.init_state(params, MAIN_BATCH, device),
+        sig[:, :CHUNK])
+    planes = _stage_d_inputs(params, state,
+                             sig[:, CHUNK:2 * CHUNK].t().contiguous())
+    bench_plain_ms, err = _check_k8(params, state, planes, "bench chunk",
+                                    need=("bytes",))
+    errs.append(err)
+    n = planes[0].shape[0]
+    c_ints, c_flts = fsk_demod._framing_carry(params, state)
+    k2_args = (params, c_ints, c_flts, state.bit_fill, *planes,
+               fsk_demod.max_bytes(params, n))
+    turns = [("K2", lambda: fsk_framing.stage_d_compact(*k2_args)),
+             ("K8", lambda: fsk_demod.stage_d(params, state, *planes))] * 2
+    for _, fn in turns:
+        fn()
+    out["bench_turns_ms"] = [(label, _cuda_ms(fn, 20)) for label, fn in turns]
+    print(f"  n_ds={n} B={MAIN_BATCH}, K2 and K8 in turns: "
+          + ", ".join(f"{label} {ms:.4f}" for label, ms in
+                      out["bench_turns_ms"]) + f" ms [{card}]")
+    out["bench"] = _timing(
+        f"n_ds={n} B={MAIN_BATCH} (bench chunk, mean of the K8 turns)",
+        sum(ms for label, ms in out["bench_turns_ms"] if label == "K8") / 2,
+        bench_plain_ms, _k8_bytes(n, MAIN_BATCH),
+        n * MAIN_BATCH * K8_OPS_PER_STEP)
+    _print_timing("fsk_stage_d K8", out["bench"], card)
+    _time_k8_kernel_only(out["bench"], params, state, planes, 20, card)
+
+    # the long BER planes: 128-byte Bell-202 messages at 10 dB
+    params = FSKParams.from_config(_bell202())
+    clean = ber.clean_signal(_bell202(), BER_MESSAGES["long"])
+    x = torch.from_numpy(ber.noisy_batch(clean, 10.0, MAIN_BATCH)).to(device)
+    state = fsk_demod.init_state(params, MAIN_BATCH, device)
+    planes = _stage_d_inputs(params, state, x.t().contiguous())
+    del x
+    plain_ms, err = _check_k8(params, state, planes, "long BER 10 dB",
+                              need=("bytes", "syncs"))
+    errs.append(err)
+    n = planes[0].shape[0]
+    k8_ms = _cuda_ms(lambda: fsk_demod.stage_d(params, state, *planes), 10)
+    out["timing"] = _timing(f"n_ds={n} B={MAIN_BATCH} (128-byte Bell-202 "
+                            "at 10 dB)", k8_ms, plain_ms,
+                            _k8_bytes(n, MAIN_BATCH),
+                            n * MAIN_BATCH * K8_OPS_PER_STEP)
+    _print_timing("fsk_stage_d K8", out["timing"], card)
+    _time_k8_kernel_only(out["timing"], params, state, planes, 10, card)
+    del planes
+
+    # whole clean 4-byte Bell-202 messages with silence after them, so
+    # every channel ends its frame (EOD), at an odd n_ds and a batch that
+    # is no multiple of the block; and no step at all
+    B = 1000
+    params = FSKParams.from_config(_bell202())
+    sig = fsk_mod.modulate_batch(params, _messages(rng, B, 4), device)
+    x = torch.nn.functional.pad(sig, (0, 2 * 1837 + 1 - sig.shape[1]))
+    state = fsk_demod.init_state(params, B, device)
+    errs.append(_check_k8(params, state, _stage_d_inputs(
+        params, state, x.t().contiguous()), "odd", need=(
+            "bytes", "syncs", "EODs"))[1])
+    z = torch.zeros((0, B), device=device)
+    errs.append(_check_k8(params, state,
+                          (z.bfloat16(), z, z, state.amp_tail), "empty")[1])
+    out["max_abs_err"] = max(errs)
+    print(f"  K8 launched {fsk_framing.stage_d_launches - launches0} times "
+          "in these comparisons (not counted for the path)")
+    return out
+
+
+def _launch_counts():
+    """The launch counters of the kernels on the BER sweep's paths."""
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, fsk_seq
+
+    return {"fsk_seq": fsk_seq.launches, "fsk_framing": fsk_framing.launches,
+            "fsk_stage_d": fsk_framing.stage_d_launches}
+
+
+class _SweepRecorder:
+    """``ber_sweep``'s demodulator: ``ModemFarm(config, B).demodulate`` on
+    the card, as the sweep's default, keeping what the checks need — the
+    decodes, the golden subset's signals, the host wall and, where
+    ``keep``, the whole host batch (for the TPU's route after the
+    sweep)."""
+
+    def __init__(self, config, device, subset, keep):
+        self.config, self.device = config, device
+        self.subset, self.keep = subset, keep
+        self.points = []
+
+    def __call__(self, batch):
+        import torch
+
+        from webaudio_modem_tpu_torch.models.farm import ModemFarm
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = torch.from_numpy(batch).to(self.device)
+        decoded = ModemFarm(self.config, len(batch),
+                            device=self.device).demodulate(x)
+        wall = time.perf_counter() - t0
+        self.points.append(dict(decoded=decoded, wall_s=wall,
+                                rows=batch[:self.subset].copy(),
+                                batch=batch if self.keep else None))
+        return decoded
+
+
+def phase_ber(device, card):
+    """BASELINE config 2 at B=4096: both Bell-202 sweeps through
+    ``sim.ber.ber_sweep`` (the port's ModemFarm on the card), the golden
+    comparator on a subset of each point, the plain versions on the CPU
+    for every message that differs from the golden model; after the
+    sweeps, the TPU's route for long chunks (K8 through
+    ``fsk_demod.stage_d``, then ``compact``) over every long-sweep batch,
+    which must decode as the sweep did, and whole-signal stage D timed by
+    its two routes.  Returns the sweeps' launches, the route's launches
+    and the results."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.models.farm import ModemFarm
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, fsk_seq
+    from webaudio_modem_tpu_torch.sim import ber
+
+    config = _bell202()
+    golden = ber.golden_demodulate(config)
+    fsk_seq.launches = fsk_framing.launches = 0
+    fsk_framing.stage_d_launches = 0
+    sweeps, peak_mib, golden_s = {}, {}, 0.0
+    for name, message in BER_MESSAGES.items():
+        rec = _SweepRecorder(config, device, GOLDEN_SUBSET[name],
+                             keep=name == "long")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        points = ber.ber_sweep(config, BER_SNRS, message,
+                               messages_per_point=BER_BATCH, demodulate=rec)
+        sweep_s = time.perf_counter() - t0
+        peak_mib[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+        T = len(ber.clean_signal(config, message))
+        print(f"  {name} message ({len(message)} bytes, T={T}), B="
+              f"{BER_BATCH}: sweep {sweep_s:.1f} s host wall (noise drawn on "
+              f"the host), peak device memory {peak_mib[name]:.1f} MiB")
+        differing = []
+        for pt, rp in zip(points, rec.points):
+            t0 = time.perf_counter()
+            gold = golden(rp["rows"])
+            golden_s += time.perf_counter() - t0
+            ours = rp["decoded"][:len(gold)]
+            diff = [k for k, (o, g) in enumerate(zip(ours, gold)) if o != g]
+            print(f"    {pt.snr_db:5.1f} dB: BER {pt.ber:.6f}, FER "
+                  f"{pt.fer:.6f} ({pt.byte_errors}/{pt.messages}); "
+                  f"demodulate {rp['wall_s'] * 1e3:.1f} ms host wall; golden "
+                  f"subset {len(gold)}: {len(diff)} differ")
+            if diff and pt.snr_db >= 10.0:
+                raise RuntimeError(f"{name} at {pt.snr_db} dB: {len(diff)} "
+                                   "subset messages decode otherwise than "
+                                   "the golden model")
+            differing += [(rp["rows"][k], ours[k]) for k in diff]
+        if points[0].bit_errors:
+            raise RuntimeError(f"{name}: bit errors at {points[0].snr_db} dB")
+        if differing:
+            rows = torch.from_numpy(np.stack([r for r, _ in differing]))
+            plain = ModemFarm(config, len(differing),
+                              device="cpu").demodulate(rows)
+            if plain != [d for _, d in differing]:
+                raise RuntimeError(f"{name}: a message that differs from "
+                                   "the golden model decodes otherwise "
+                                   "through the plain versions (CPU)")
+            print(f"    the {len(differing)} messages that differ from the "
+                  "golden model decode the same through the plain versions "
+                  "on the CPU")
+        sweeps[name] = dict(
+            T=T, peak_mib=peak_mib[name], sweep_s=sweep_s,
+            points=[dict(snr_db=p.snr_db, ber=p.ber, fer=p.fer,
+                         bit_errors=p.bit_errors, byte_errors=p.byte_errors,
+                         demodulate_ms=rp["wall_s"] * 1e3)
+                    for p, rp in zip(points, rec.points)],
+            golden_differ_below_10db=len(differing))
+        if name == "long":
+            long_points = rec.points
+    launches = _launch_counts()
+    n = len(BER_SNRS)
+    print(f"  sweep launches {launches}; golden comparator {golden_s:.1f} s")
+    if launches != {"fsk_seq": 2 * n, "fsk_framing": 2 * n,
+                    "fsk_stage_d": 0}:
+        raise RuntimeError(f"BER path launches {launches}")
+
+    # the TPU's route over every long-sweep batch, outside the sweep's
+    # timed window: no entry point of the port sends a chunk to K8, so
+    # these are K8's only launches on a driven path
+    params = FSKParams.from_config(config)
+    fsk_seq.launches = fsk_framing.launches = 0
+    fsk_framing.stage_d_launches = 0
+    t0 = time.perf_counter()
+    x10 = None
+    for snr, rp in zip(BER_SNRS, long_points):
+        x = torch.from_numpy(rp.pop("batch")).to(device)
+        vals, counts = _route(params, x, per_step=True)
+        counts, vals = counts.cpu().numpy(), vals.cpu().numpy()
+        routed = [bytes(vals[b, :counts[b]]) for b in range(len(x))]
+        if routed != rp["decoded"]:
+            bad = sum(r != d for r, d in zip(routed, rp["decoded"]))
+            raise RuntimeError(f"K8 + compact at {snr} dB: {bad} channels "
+                               "decode otherwise than the K2 path")
+        if snr == 10.0:
+            x10 = x
+    route_launches = _launch_counts()
+    print(f"  the TPU's route (K8 + compact) decodes all {n} long batches "
+          f"as the sweep did ({time.perf_counter() - t0:.1f} s host wall); "
+          f"launches {route_launches}")
+    if route_launches != {"fsk_seq": n, "fsk_framing": 0, "fsk_stage_d": n}:
+        raise RuntimeError(f"TPU route launches {route_launches}")
+
+    # whole-signal stage D of the long sweep's 10 dB batch, by route
+    routes = {"K2 (the port's path)": False, "K8 + compact (TPU route)": True}
+    for per_step in routes.values():
+        _route(params, x10, per_step)
+    times = {label: _cuda_ms(lambda p=p: _route(params, x10, p), 5)
+             for label, p in routes.items()}
+    print("  whole-signal K1 + sync + stage D, long batch at 10 dB: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" [{card}]")
+    return launches, route_launches, dict(sweeps=sweeps, route_ms=times,
+                                          golden_s=golden_s)
+
+
+def phase_v21_impairments_checkpoints(device, rng, card):
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import FSKConfig
+    from webaudio_modem_tpu_torch.models.farm import ModemFarm
+    from webaudio_modem_tpu_torch.models.v21 import V21Duplex
+    from webaudio_modem_tpu_torch.sim import ber, impairments
+
+    out = {}
+    # BASELINE config 4: V.21 full duplex, each station B=1; the second
+    # exchange with the reference suite's line noise
+    for d1, d2, noisy in ((b"ping!", b"pong.", False),
+                          (b"\x11\x22", b"\x33\x44", True)):
+        link = V21Duplex(device=device)
+        noise = None
+        if noisy:
+            sig_len = len(link.calling.modulate(d1))
+            link.calling.reset()
+            noise = (np.random.RandomState(9).uniform(
+                -1, 1, sig_len + 48000) * 0.02).astype(np.float32)
+        t0 = time.perf_counter()
+        got = link.exchange(d1, d2, noise=noise)
+        wall = time.perf_counter() - t0
+        print(f"  V.21 exchange {d1!r} / {d2!r}"
+              f"{' with noise' if noise is not None else ''}: decoded "
+              f"{got[0]!r} / {got[1]!r} ({wall * 1e3:.1f} ms host wall)")
+        if got != (d1, d2):
+            raise RuntimeError("V.21: a direction decoded wrong")
+    out["v21_exact"] = True
+
+    # impairments on the Bell-202 config, hard column at B=1024, and the
+    # golden model's verdicts on the first 8 messages of every point
+    config = _bell202()
+    golden = ber.golden_demodulate(config)
+    for sweep, values in ((impairments.carrier_offset_sweep,
+                           CARRIER_OFFSETS_HZ),
+                          (impairments.clock_skew_sweep, CLOCK_SKEWS)):
+        t0 = time.perf_counter()
+        pts = sweep(config, values, messages_per_point=IMPAIR_BATCH,
+                    device=device)
+        wall = time.perf_counter() - t0
+        ours8 = sweep(config, values, messages_per_point=8, device=device)
+        gold8 = sweep(config, values, messages_per_point=8,
+                      demodulate=golden)
+        name = sweep.__name__
+        print(f"  {name} B={IMPAIR_BATCH} at 30 dB ({wall:.1f} s): "
+              + ", ".join(f"{p.value:g}: FER {p.fer:.4f} BER {p.ber:.5f}"
+                          for p in pts))
+        if [(p.fer, p.ber) for p in ours8] != [(p.fer, p.ber)
+                                               for p in gold8]:
+            raise RuntimeError(f"{name}: the first 8 messages decode "
+                               "otherwise than the golden model")
+        if pts[0].fer:
+            raise RuntimeError(f"{name}: errors without impairment")
+        out[name] = [(p.value, p.fer, p.ber) for p in pts]
+    (soft,) = impairments.carrier_offset_sweep(
+        config, [40.0], messages_per_point=16, snr_db=None, soft=True,
+        device=device)
+    print(f"  soft column (SoftModemCore), 40 Hz offset, 16 messages: "
+          f"FER {soft.fer}")
+    if soft.fer:
+        raise RuntimeError("soft column: frames lost at 40 Hz offset")
+    out["soft_40hz_fer"] = soft.fer
+
+    # a checkpoint mid-stream at B=4096: 3 chunks, save, restore into a new
+    # farm, the rest; against an uninterrupted run
+    farm = ModemFarm(_bench_config(), MAIN_BATCH, device=device)
+    msgs = _messages(rng, MAIN_BATCH, 13)
+    sig = farm.modulate(msgs)
+    cut = 3 * CHUNK
+    whole = ModemFarm(_bench_config(), MAIN_BATCH,
+                      device=device).demodulate(sig, chunk_size=CHUNK)
+    part1 = farm.demodulate(sig[:, :cut], chunk_size=CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/farm.npz"
+        t0 = time.perf_counter()
+        farm.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = ModemFarm.restore(path, device=device)
+        restore_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+    for name, x in vars(farm.state).items():
+        if not torch.equal(x, getattr(restored.state, name)):
+            raise RuntimeError(f"checkpoint: {name} differs after restore")
+    part2 = restored.demodulate(sig[:, cut:], chunk_size=CHUNK)
+    resumed = [a + b for a, b in zip(part1, part2)]
+    print(f"  checkpoint B={MAIN_BATCH} after 3 chunks: {size_mb:.1f} MB "
+          f"file, save {save_s * 1e3:.0f} ms, restore {restore_s * 1e3:.0f} "
+          f"ms; resumed decode equal to the uninterrupted run: "
+          f"{resumed == whole}, exact {sum(r == m for r, m in zip(resumed, msgs))}"
+          f"/{MAIN_BATCH}")
+    if resumed != whole or whole != msgs:
+        raise RuntimeError("checkpoint: the resumed stream decodes "
+                           "otherwise than the uninterrupted run")
+    out["checkpoint"] = dict(file_mb=size_mb, save_ms=save_s * 1e3,
+                             restore_ms=restore_s * 1e3)
+    return out
+
+
 def _host_ops(label, run, calls, top=8):
     """The host side of ``run()`` (``calls`` calls) under torch.profiler,
     CPU only: kernel launches per call and the operators with the most
@@ -1656,6 +2202,13 @@ def main() -> int:
     blind_launches, blind_out = phase_blind_main_path(device, rng, card)
     print("phase 14: blind timings")
     blind = phase_blind_timings(device, rng, card)
+    print("phase 15: K8 vs plain on the card")
+    k8 = phase_k8_vs_plain(device, rng, card)
+    max_err["fsk_stage_d"] = k8["max_abs_err"]
+    print("phase 16: BASELINE config 2, Bell-202 BER sweeps at B=4096")
+    ber_launches, route_launches, ber_out = phase_ber(device, card)
+    print("phase 17: V.21 full duplex, impairments, checkpoints")
+    slice_out = phase_v21_impairments_checkpoints(device, rng, card)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib",
@@ -1667,7 +2220,9 @@ def main() -> int:
         by_path = {"hard_fsk": hard_launches.get(name, 0),
                    "soft_fec": soft_launches.get(name, 0),
                    "dbpsk": psk_launches.get(name, 0),
-                   "blind": blind_launches.get(name, 0)}
+                   "blind": blind_launches.get(name, 0),
+                   "ber": ber_launches.get(name, 0),
+                   "tpu_route (chip_smoke)": route_launches.get(name, 0)}
         if not any(by_path.values()):
             raise RuntimeError(f"{name}: no launch on a main path")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1725,6 +2280,15 @@ def main() -> int:
              "blind_programs_ms": {k: blind[k] for k in (
                  "detector_ms", "header_prog_ms", "body_prog_ms")},
              "blind_main_path": blind_out}),
+        row("fsk_stage_d", "fsk_stage_d.cu", "fsk_framing.py:47",
+            k8["timing"],
+            {"kernel_only_ms": k8["timing"]["kernel_only_ms"],
+             "other_shapes": [{k: k8["bench"][k] for k in (
+                 "shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")}],
+             "bench_turns_ms": k8["bench_turns_ms"],
+             "ber_main_path": ber_out,
+             "v21_impairments_checkpoints": slice_out}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

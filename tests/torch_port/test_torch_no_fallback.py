@@ -19,16 +19,19 @@ import numpy as np
 import pytest
 import torch
 
+from webaudio_modem_tpu_torch.models import checkpoint
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.models.farm import ModemFarm
 from webaudio_modem_tpu_torch.models.fsk import FSKCore
 from webaudio_modem_tpu_torch.models.psk import PSKConfig, PSKCore
 from webaudio_modem_tpu_torch.models.soft_modem import SoftModemCore
+from webaudio_modem_tpu_torch.models.v21 import V21Duplex, V21Station
 from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod, psk, soft_fsk
 from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
                                                   fsk_framing, fsk_seq,
                                                   psk_seq, viterbi)
 from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
+from webaudio_modem_tpu_torch.sim import ber, impairments
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -82,7 +85,14 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
     "webaudio_modem_tpu_torch.ops.soft_blind",
     "webaudio_modem_tpu_torch.ops.kernels.cumsum0",
     "webaudio_modem_tpu_torch.models.soft_modem",
-    "webaudio_modem_tpu_torch.sim", "webaudio_modem_tpu_torch.sim.channels"])
+    "webaudio_modem_tpu_torch.sim", "webaudio_modem_tpu_torch.sim.channels",
+    "webaudio_modem_tpu_torch.sim.ber",
+    "webaudio_modem_tpu_torch.sim.impairments",
+    "webaudio_modem_tpu_torch.golden",
+    "webaudio_modem_tpu_torch.golden.fsk_golden",
+    "webaudio_modem_tpu_torch.models.v21",
+    "webaudio_modem_tpu_torch.models.checkpoint",
+    "webaudio_modem_tpu_torch.ops.filters"])
 def test_new_modules_are_walked_behind_the_blocker(module):
     code = _BLOCKED_IMPORTS.replace(
         'print(len(names), "modules clean")',
@@ -101,6 +111,9 @@ def test_new_modules_are_walked_behind_the_blocker(module):
     soft_fsk.decode_frame_signal, soft_fsk.decode_frame_chunks,
     soft_fsk.SoftFrameDecoder.__init__, fsk_demod.soft_stream,
     BlindSoftBatchReceiver.__init__, SoftModemCore.__init__,
+    ber.ber_sweep, ber.ber_parity_report, impairments.carrier_offset_sweep,
+    impairments.clock_skew_sweep, V21Station.__init__, V21Duplex.__init__,
+    checkpoint.load_state, checkpoint.loads_state, ModemFarm.restore,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -125,6 +138,13 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         lambda: soft_fsk.decode_frame_signal(params, np.zeros(64)),
         lambda: fsk_demod.soft_stream(params, np.zeros(64)),
         lambda: SoftModemCore(FSKConfig()),
+        lambda: ber.ber_sweep(FSKConfig(), [30.0], messages_per_point=1),
+        lambda: impairments.carrier_offset_sweep(FSKConfig(), [0.0]),
+        lambda: impairments.clock_skew_sweep(FSKConfig(), [0.0],
+                                             soft=True),
+        lambda: V21Duplex(),
+        lambda: checkpoint.loads_state(checkpoint.dumps_state(
+            fsk_demod.init_state(params, 1, "cpu"), FSKConfig())),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
@@ -139,12 +159,14 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 def _launches():
-    return (fsk_seq.launches, fsk_framing.launches, viterbi.launches,
-            align.launches, psk_seq.launches, cumsum0.launches)
+    return (fsk_seq.launches, fsk_framing.launches,
+            fsk_framing.stage_d_launches, viterbi.launches, align.launches,
+            psk_seq.launches, cumsum0.launches)
 
 
-@pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "viterbi",
-                                    "align", "psk_seq", "cumsum0"])
+@pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "fsk_stage_d",
+                                    "viterbi", "align", "psk_seq",
+                                    "cumsum0"])
 def test_wrappers_raise_off_cpu(kernel):
     """Tensors on a device that is neither the CPU nor CUDA are refused,
     not handed to the plain version."""
@@ -161,6 +183,8 @@ def test_wrappers_raise_off_cpu(kernel):
             ints, flts = fsk_demod._framing_carry(params, state)
             fsk_framing.stage_d_compact(
                 params, ints, flts, state.bit_fill, z.bfloat16(), z, z, z, 4)
+        elif kernel == "fsk_stage_d":
+            fsk_demod.stage_d(params, state, z.bfloat16(), z, z, z)
         elif kernel == "viterbi":
             viterbi.decode(z, z, 2)
         elif kernel == "cumsum0":

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Time one piece of several checkouts in turns, on one card.
+
+    python3 tools/turns.py WHAT parent=DIR change=. change=. parent=DIR
+
+Each LABEL=DIR turn runs in its own process, importing that checkout's
+``webaudio_modem_tpu_torch`` and ``chip_smoke.py`` (each builds its own
+kernels).  Turns in one call on one card are what two versions may be
+compared by.  WHAT is one of:
+
+* ``framing`` — on the second 0.1 s chunk of 4096 distinct 13-byte
+  messages at the hard bench configuration (300 baud, n_ds = 2400), as
+  ``chip_smoke.py`` phase 5 times K2: K2 (``stage_d_compact``) five
+  times over 20 launches between two CUDA events, and K8 (``stage_d``)
+  where the checkout has it.  It prints a hash of K2's outputs, so the
+  turns also show whether two checkouts' K2 compute the same bytes.
+* ``soft_decode`` — the farm soft-FEC decode of 2048 and 4096 distinct
+  16-byte payloads at 8 dB, as ``chip_smoke.py`` phase 8 makes them,
+  decoded exactly three times over as ten pipelined
+  ``decode_frames_batch_async`` calls (host wall per decode), then ten
+  ``_decode_frames_fused`` calls between two CUDA events.
+"""
+
+import os
+import subprocess
+import sys
+
+PRELUDE = r"""
+import hashlib, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import chip_smoke as cs
+from webaudio_modem_tpu_torch.ops import fsk_demod
+assert fsk_demod.__file__.startswith(sys.argv[1]), fsk_demod.__file__
+dev = torch.device("cuda", 0)
+"""
+
+TURNS = {
+    "framing": r"""
+from webaudio_modem_tpu_torch.models.config import FSKParams
+from webaudio_modem_tpu_torch.ops import fsk_mod
+from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, fsk_seq
+params = FSKParams.from_config(cs._bench_config())
+B = 4096
+sig = fsk_mod.modulate_batch(
+    params, cs._messages(np.random.default_rng(5), B, 13), dev)
+state, _ = fsk_demod.demod_chunk(
+    params, 0, fsk_demod.init_state(params, B, dev), sig[:, :cs.CHUNK])
+ds = params.ds_samples_per_bit
+_, _, bits, amps, _, rsum = fsk_seq.seq(
+    params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
+    sig[:, cs.CHUNK:2 * cs.CHUNK].t().contiguous())
+ratios = fsk_demod._sync_ratios_from_r(params, state.r_tail, rsum)
+ints, flts = fsk_demod._framing_carry(params, state)
+n = bits.shape[0]
+planes = (bits, amps, ratios, torch.cat([state.amp_tail, amps]))
+args = (params, ints, flts, state.bit_fill, *planes,
+        fsk_demod.max_bytes(params, n))
+out = fsk_framing.stage_d_compact(*args)
+digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                 for t in out)).hexdigest()[:16]
+kernels = {"K2": lambda: fsk_framing.stage_d_compact(*args)}
+if hasattr(fsk_framing, "stage_d"):
+    kernels["K8"] = lambda: fsk_demod.stage_d(params, state, *planes)
+for name, fn in kernels.items():
+    for _ in range(3):
+        fn()
+    ms = [cs._cuda_ms(fn, 20) for _ in range(5)]
+    print(f"turn {sys.argv[2]} {name} n_ds={n} B={B}: "
+          f"{', '.join(f'{m:.4f}' for m in ms)} ms per launch"
+          + (f"; K2 outputs sha256 {digest}" if name == "K2" else ""),
+          flush=True)
+""",
+    "soft_decode": r"""
+from webaudio_modem_tpu_torch.ops import soft_fsk
+params = cs._soft_params()
+rng = np.random.default_rng(8)
+for B in (2048, 4096):
+    payloads, noisy = cs._soft_batch(params, rng, B, dev)
+    for _ in range(3):
+        soft_fsk.decode_frames_batch(params, noisy, 16, device=dev)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pending = [soft_fsk.decode_frames_batch_async(params, noisy, 16,
+                                                      device=dev)
+                   for _ in range(10)]
+        outs = [p() for p in pending]
+        walls.append((time.perf_counter() - t0) * 1e3 / 10)
+        if any(o != payloads for o in outs):
+            raise RuntimeError("a timed decode was not exact")
+    ev = cs._cuda_ms(lambda: soft_fsk._decode_frames_fused(params, noisy, 16),
+                     10)
+    print(f"turn {sys.argv[2]} B={B}: host wall per pipelined decode "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms; CUDA events "
+          f"{ev:.3f} ms per decode", flush=True)
+""",
+}
+
+
+def main(argv) -> int:
+    if len(argv) < 2 or argv[0] not in TURNS:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for turn in argv[1:]:
+        label, _, tree = turn.partition("=")
+        tree = os.path.abspath(tree)
+        proc = subprocess.run(
+            [sys.executable, "-c", PRELUDE + TURNS[argv[0]], tree, label],
+            capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr)
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

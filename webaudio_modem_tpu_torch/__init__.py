@@ -15,22 +15,32 @@ find:
   models.soft_modem   SoftModemCore, the soft-FEC facade (streaming
                       SoftFrameDecoder behind the FSKCore surface)
   models.farm         ModemFarm, B independent streaming channels (FSK
-                      or DBPSK, by the config's type)
-  ops.filters         Butterworth biquad design
+                      or DBPSK, by the config's type); save / restore
+  models.checkpoint   save_state / load_state in the JAX package's file
+                      format (a snapshot continues across packages)
+  models.v21          V21Station / V21Duplex, ITU-T V.21 full duplex
+  golden              GoldenFSK, the numpy scalar comparator (a copy)
+  ops.filters         Butterworth biquad and windowed-sinc FIR design,
+                      fir_apply and biquad_scan
   ops.fsk_mod         batched phase-continuous FSK synthesis
-  ops.fsk_demod       streaming hard-decision demodulator (demod_chunk)
+  ops.fsk_demod       streaming hard-decision demodulator (demod_chunk,
+                      K1 + K2) and stage_d, stage D's per-step events (K8)
   ops.psk             DBPSK modulator and demodulator (demod_chunk)
   ops.fec             K=7 rate-1/2 convolutional code, batched Viterbi
   ops.soft_fsk        soft-decision FEC frames: encode, farm batch decode,
                       the streaming single-channel decoder
   ops.soft_blind      BlindSoftBatchReceiver, blind batched acquisition
-  sim                 channel simulators (numpy, and make_device_awgn)
+  sim                 channel simulators (numpy, and make_device_awgn),
+                      the BER harness (ber_sweep against the golden
+                      model) and the impairment sweeps
   ops.kernels         hand-written Hopper kernels (csrc/*.cu) and their
                       plain PyTorch versions
 
 Ported so far: the streaming hard-FSK path, the farm soft-FEC decode,
-DBPSK and soft-frame acquisition (the blind receiver and the streaming
-soft decoder; ROADMAP.md, queue 1).  The entry points run on the card
+DBPSK, soft-frame acquisition (the blind receiver and the streaming
+soft decoder), the BER and V.21 configurations with the golden
+comparator, the impairment sweeps and checkpoints (ROADMAP.md, queue
+1); every TPU kernel has its Hopper kernel (K1-K8).  The entry points run on the card
 unless the caller passes ``device="cpu"``.  Importing this package
 imports torch and numpy only, never the JAX package; kernels are built
 with nvcc the first time a CUDA tensor reaches them.

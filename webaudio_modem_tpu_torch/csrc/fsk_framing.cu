@@ -23,25 +23,20 @@
 // step and channel (bits bf16, amps, ratios, delayed amps f32) — 0.14 GB
 // per 0.1 s chunk at B=4096 — and writes only O(maxb) bytes per channel.
 //
-// Numerics.  The float carries (rolling amp sum, threshold) use the same
-// op order as the plain version (ops/kernels/fsk_framing.py:
-// stage_d_plain); built with -fmad=false and IEEE division, the kernel
-// matches it bit for bit on identical inputs.
+// The step itself (framing_step.cuh) is shared with K8 (fsk_stage_d.cu);
+// built with -fmad=false and IEEE division, the kernel matches the plain
+// version (ops/kernels/fsk_framing.py: stage_d_plain) bit for bit on
+// identical inputs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-struct FskFramingCoef {
-  int ds_per_bit, quarter, stop_pos, parity_on, amp_window, sync_window,
-      wrap;
-  float eod_after, sync_thr;
-};
+#include "framing_step.cuh"
 
 namespace {
 
 constexpr int kThreads = 32;
 constexpr int kBlock = 8;   // steps loaded ahead per thread
-constexpr int kInts = 10;
 
 __global__ void __launch_bounds__(kThreads)
 fsk_framing_kernel(const __nv_bfloat16* __restrict__ bits,
@@ -60,18 +55,7 @@ fsk_framing_kernel(const __nv_bfloat16* __restrict__ bits,
   if (b >= B) return;
   const size_t Bs = static_cast<size_t>(B);
 
-  int started = ints_in[0 * Bs + b];
-  int counter = ints_in[1 * Bs + b];
-  int sil = ints_in[2 * Bs + b];
-  int accum = ints_in[3 * Bs + b];
-  int count = ints_in[4 * Bs + b];
-  int bsc = ints_in[5 * Bs + b];
-  int nxt = ints_in[6 * Bs + b];
-  int byte_cur = ints_in[7 * Bs + b];
-  int pos = ints_in[8 * Bs + b];
-  int fillv = ints_in[9 * Bs + b];
-  float thr = flts_in[b];
-  float run_sum = flts_in[Bs + b];
+  wam::FramingCarry s = wam::framing_load(ints_in, flts_in, Bs, b);
   const int fill0 = bit_fill[b];
 
   unsigned char* row = bytes_out + static_cast<size_t>(b) * maxb;
@@ -95,78 +79,20 @@ fsk_framing_kernel(const __nv_bfloat16* __restrict__ bits,
     for (int u = 0; u < kBlock; ++u) {
       const int t = t0 + u;
       if (t >= n_ds) break;
-      const float amp = amp_s[u];
-      const int bit = bit_s[u];
       const bool gate = fill0 + (t + 1) >= c.sync_window;
-
-      // rolling mean over the last amp_window amplitudes
-      run_sum = run_sum + amp - sub_s[u];
-      fillv = min(fillv + 1, c.amp_window);
-      const float mean = run_sum / static_cast<float>(fillv);
-
-      int counter1 = counter + 1;
-      if (counter1 >= c.wrap) counter1 -= c.wrap;
-      // silence EOD
-      const bool is_sil = amp < thr;
-      const int sil1 = is_sil ? sil + 1 : 0;
-      const bool eod = is_sil && static_cast<float>(sil1) >= c.eod_after;
-      const bool alive = !eod;
-      const bool st = started > 0;
-      // pre-sync pattern check
-      const bool fire = alive && !st && gate &&
-                        counter1 % c.quarter == 0 && ratio_s[u] > c.sync_thr;
-      // post-sync majority-vote bit accumulation
-      const bool post = alive && st;
-      const int accum1 = accum + bit;
-      const int count1 = count + 1;
-      const int bsc1 = bsc + 1;
-      const bool decide = post && bsc1 >= nxt;
-      const bool bv = 2 * accum1 > count1;
-      // UART byte assembly
-      const bool start_fail = decide && pos == 0 && bv;
-      const bool is_data = pos >= 1 && pos <= 8;
-      const bool is_parity = c.parity_on && pos == 9;
-      const bool is_stop = pos == c.stop_pos;
-      const bool stop_fail = decide && is_stop && !bv;
-      const bool emit = decide && is_stop && bv;
-      const bool bad = decide && !(pos == 0 || is_data || is_parity || is_stop);
-      const bool data_write = decide && is_data;
-      const int shift = min(max(8 - pos, 0), 8);
-      const int byte1 = data_write ? (byte_cur | (int(bv) << shift)) : byte_cur;
-
-      const bool reset_full = eod || start_fail;
-      const bool drop_frame = stop_fail || bad;
-      const bool clear = reset_full || fire;
-      const bool post_keep = post && !reset_full;
-      const bool ok_advance = decide && !(start_fail || stop_fail || bad);
-
-      if (emit) {
-        if (cursor < maxb) row[cursor] = static_cast<unsigned char>(byte_cur);
+      const wam::FramingEvents ev = wam::framing_step(
+          s, amp_s[u], sub_s[u], ratio_s[u], bit_s[u], gate, c);
+      if (ev.emit) {
+        if (cursor < maxb) row[cursor] = static_cast<unsigned char>(ev.byte_val);
         ++cursor;
       }
-      eods += eod;
-      fires += fire;
-      if (fire) last_fire = t;
-
-      started = (reset_full || drop_frame) ? 0 : (fire ? 1 : started);
-      counter = reset_full ? 0 : counter1;
-      sil = reset_full ? 0 : sil1;
-      if (fire) thr = mean * 0.1f;
-      accum = clear ? 0 : (post_keep ? (decide ? 0 : accum1) : accum);
-      count = clear ? 0 : (post_keep ? (decide ? 0 : count1) : count);
-      bsc = clear ? 0 : (post_keep ? bsc1 : bsc);
-      nxt = clear ? 0 : ((post_keep && decide) ? nxt + c.ds_per_bit : nxt);
-      byte_cur = (clear || emit) ? 0 : (data_write ? byte1 : byte_cur);
-      pos = (clear || emit) ? 0 : (ok_advance ? pos + 1 : pos);
+      eods += ev.eod;
+      fires += ev.fire;
+      if (ev.fire) last_fire = t;
     }
   }
 
-  const int r[kInts] = {started, counter, sil,      accum, count,
-                        bsc,     nxt,     byte_cur, pos,   fillv};
-#pragma unroll
-  for (int k = 0; k < kInts; ++k) ints_out[k * Bs + b] = r[k];
-  flts_out[b] = thr;
-  flts_out[Bs + b] = run_sum;
+  wam::framing_store(s, ints_out, flts_out, Bs, b);
   byte_count[b] = cursor;
   eod_fired[b] = eods;
   sync_fired[b] = fires;

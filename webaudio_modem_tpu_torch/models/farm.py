@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from webaudio_modem_tpu_torch.core import SignalQuality
+from webaudio_modem_tpu_torch.models import checkpoint
 from webaudio_modem_tpu_torch.models import psk as psk_model
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod, psk
@@ -137,6 +138,24 @@ class ModemFarm:
         self.state = self._ops.init_state(self.params, self.batch,
                                           self.device)
         self._ds_phase = 0
+
+    # -- checkpoint / resume ------------------------------------------------
+
+    def save(self, path) -> None:
+        """Snapshot the full streaming state mid-stream, in the JAX
+        package's checkpoint format (``models/checkpoint.py``)."""
+        checkpoint.save_state(path, self.state, self.config, self._ds_phase)
+
+    @classmethod
+    def restore(cls, path, *, device="cuda") -> "ModemFarm":
+        """Resume a farm from a checkpoint (written by the port or by the
+        JAX package) on ``device``; decoding continues bit-identically
+        from where the snapshot was taken."""
+        state, config, ds_phase = checkpoint.load_state(path, device=device)
+        farm = cls(config, int(state.bit_fill.shape[0]), device=device)
+        farm.state = state
+        farm._ds_phase = ds_phase
+        return farm
 
     # -- observability ------------------------------------------------------
 

@@ -11,8 +11,12 @@ stages per chunk:
   C.   frame-sync correlation: one exact f32 band matmul over R
        (``_sync_ratios_from_r``), or an exact cumsum form for ds > 256;
   D.   framing state machine and byte compaction — kernel K2,
-       ``ops/kernels/fsk_framing.py``;
+       ``ops/kernels/fsk_framing.py``, at every chunk length;
   then the SignalQuality window refresh at the last sync fire.
+``stage_d`` is stage D with per-step events instead of compaction —
+kernel K8, the counterpart of the reference's ``_stage_d`` (which the
+reference's chunk step takes where its compact kernel runs out of
+slots; the port's K2 has no slot bound).
 Stages C and D and the quality refresh are ``sync_and_frame``, which the
 DBPSK chunk step (``ops/psk.py``) shares.  ``soft_stream`` is the
 soft-value surface of the streaming soft decoder: K1 with every plane
@@ -316,6 +320,22 @@ def _framing_carry(params: FSKParams, state: DemodState):
     return ints, flts
 
 
+def stage_d(params: FSKParams, state: DemodState, bits, amps, ratios,
+            sub_amps, plain: bool = False):
+    """Stage D with per-step events: the framing state machine over
+    [n_ds, B] streams from ``state``'s framing registers and amp window,
+    the sync gate from ``state.bit_fill``.  ``sub_amps`` is the amplitude
+    stream delayed by amp_window (``cat([state.amp_tail, amps])``; rows
+    0..n_ds-1 are read).  Runs K8 on CUDA tensors and its plain version
+    on CPU tensors or where ``plain=True``.  Returns ((ints', flts'),
+    (byte_vals i32, emits, eods, fires bool)) with the planes [n_ds, B]
+    and the carry in K2's layout (``_framing_carry``)."""
+    ints, flts = _framing_carry(params, state)
+    framing = fsk_framing.stage_d_plain if plain else fsk_framing.stage_d
+    return framing(params, ints, flts, state.bit_fill, bits, amps, ratios,
+                   sub_amps)
+
+
 def quality_window_update(params: FSKParams, quality: torch.Tensor,
                           ratios: torch.Tensor, softs: torch.Tensor,
                           fire_t: torch.Tensor) -> torch.Tensor:
@@ -465,10 +485,8 @@ def quality_calibration(params: FSKParams, state: DemodState, bits, amps,
     W = params.sync_window
     dsb = params.ds_samples_per_bit
     ratios = _sync_ratios_cumsum(params, torch.cat([state.bit_tail, bits]))
-    ints, flts = _framing_carry(params, state)
-    _, (_, _, _, fires) = fsk_framing.stage_d_plain(
-        params, ints, flts, state.bit_fill, bits, amps, ratios,
-        torch.cat([state.amp_tail, amps]))
+    _, (_, _, _, fires) = stage_d(params, state, bits, amps, ratios,
+                                  torch.cat([state.amp_tail, amps]))
     fires_np = fires[:, 0].numpy()
     softs_np = softs[:, 0].double().numpy()
     ratios_np = ratios[:, 0].double().numpy()

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 Each kernel module holds a wrapper (``fsk_seq.seq``,
-``fsk_framing.stage_d_compact``, ``viterbi.decode``,
+``fsk_framing.stage_d_compact`` (K2) and ``fsk_framing.stage_d`` (K8),
+``viterbi.decode``,
 ``align.aligned_wsum``, ``cumsum0.csum0``, ``psk_seq.seq``) and its plain
 PyTorch version (``*_plain``).  A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it

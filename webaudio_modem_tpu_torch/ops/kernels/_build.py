@@ -5,7 +5,8 @@ The libraries have a plain C interface (no PyTorch headers), so a build
 takes seconds.  Each source is compiled for ``sm_90a`` at first use into
 ``build/kernels/`` beside the package, under a name keyed by a hash of
 that source, the ``csrc/`` headers it includes (``seq_front.cuh``, the
-front end K1 and K6 share) and the flags, and reused while none of them
+front end K1 and K6 share; ``framing_step.cuh``, the step K2 and K8
+share) and the flags, and reused while none of them
 changes.  ``build`` starts one nvcc per missing library, all at once, and
 waits for them.
 

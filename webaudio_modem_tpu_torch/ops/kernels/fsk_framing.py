@@ -1,16 +1,24 @@
-"""Kernel K2: the framing state machine (stage D) with byte compaction.
+"""Kernels K2 and K8: the framing state machine (stage D).
 
-Replaces ``webaudio_modem_tpu/ops/pallas/fsk_framing.py``
-``_kernel_compact``.  Per downsampled step, ``_d_step`` of
+Per downsampled step, ``_d_step`` of
 ``webaudio_modem_tpu/ops/fsk_demod.py``: silence EOD, sync firing gated
 on the bit-window fill, majority-vote bit decisions, UART byte
-assembly and the fused rolling amplitude mean.  Out come the decoded
-bytes, packed per channel from slot 0, the counts of bytes, EODs and
-sync fires, and the step of the last fire (-1 for none).
+assembly and the fused rolling amplitude mean.  Two kernels run it,
+sharing the step (``csrc/framing_step.cuh``):
 
-The kernel writes each byte straight to ``bytes_out[b, cursor]``, so
-unlike the TPU kernel it has no slot bound (the TPU's ``MAX_SLOTS``)
-and no fallback for long chunks.
+* K2, ``stage_d_compact`` (``csrc/fsk_framing.cu``), replaces
+  ``webaudio_modem_tpu/ops/pallas/fsk_framing.py`` ``_kernel_compact``.
+  Out come the decoded bytes, packed per channel from slot 0, the
+  counts of bytes, EODs and sync fires, and the step of the last fire
+  (-1 for none).  It writes each byte straight to ``bytes_out[b,
+  cursor]``, so unlike the TPU kernel it has no slot bound (the TPU's
+  ``MAX_SLOTS``) and no fallback for long chunks: ``demod_chunk`` runs it
+  at every chunk length.
+* K8, ``stage_d`` (``csrc/fsk_stage_d.cu``), replaces the same file's
+  ``_kernel``: the per-step events, one packed int32 word per step and
+  channel (byte | emit << 8 | eod << 9 | fire << 10), unpacked to the
+  four planes ``stage_d_plain`` returns.  ``fsk_demod.stage_d`` is its
+  entry point, the counterpart of the reference's ``_stage_d``.
 
 Carry layout (as the reference's ``pack_carry``): ``ints`` i32 [10, B]
 = started, counter, sil, accum, count, bsc, next_idx, byte_cur, pos,
@@ -31,9 +39,10 @@ from webaudio_modem_tpu_torch.ops.kernels import _build
 
 N_I32 = 10
 N_F32 = 2
-# kernel launches through ``stage_d_compact`` (CPU calls run the plain
-# version and are not counted)
+# kernel launches through ``stage_d_compact`` (K2) and ``stage_d`` (K8);
+# CPU calls run the plain version and are not counted
 launches = 0
+stage_d_launches = 0
 
 
 def _wrap(params: FSKParams) -> int:
@@ -188,7 +197,7 @@ def stage_d_compact_plain(params: FSKParams, ints, flts, bit_fill, bits,
 # ---------------------------------------------------------------------------
 
 class _Coef(ctypes.Structure):
-    """Mirror of ``FskFramingCoef`` in csrc/fsk_framing.cu."""
+    """Mirror of ``FskFramingCoef`` in csrc/framing_step.cuh."""
     _fields_ = [("ds_per_bit", ctypes.c_int), ("quarter", ctypes.c_int),
                 ("stop_pos", ctypes.c_int), ("parity_on", ctypes.c_int),
                 ("amp_window", ctypes.c_int),
@@ -217,6 +226,63 @@ def _entry():
     return fn
 
 
+def _stage_d_entry():
+    fn = _build.library("fsk_stage_d").wam_fsk_stage_d
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp,
+                       ctypes.POINTER(_Coef), vp]
+        fn.restype = ci
+    return fn
+
+
+def _check_operands(ints, flts, bit_fill, bits, amps, ratios, sub_amps):
+    n_ds, B = bits.shape
+    _build.check(bits, "bits", torch.bfloat16, (n_ds, B))
+    _build.check(amps, "amps", torch.float32, (n_ds, B))
+    _build.check(ratios, "ratios", torch.float32, (n_ds, B))
+    _build.check(sub_amps, "sub_amps", torch.float32, (None, B))
+    if sub_amps.shape[0] < n_ds:
+        raise ValueError("sub_amps: needs at least n_ds rows")
+    _build.check(ints, "ints", torch.int32, (N_I32, B))
+    _build.check(flts, "flts", torch.float32, (N_F32, B))
+    _build.check(bit_fill, "bit_fill", torch.int32, (B,))
+
+
+def stage_d(params: FSKParams, ints: torch.Tensor, flts: torch.Tensor,
+            bit_fill: torch.Tensor, bits: torch.Tensor, amps: torch.Tensor,
+            ratios: torch.Tensor, sub_amps: torch.Tensor):
+    """Framing state machine over [n_ds, B] streams with per-step events
+    (K8), the contract of ``stage_d_plain``.
+
+    bits bf16, amps / ratios f32 [n_ds, B]; sub_amps f32 [>= n_ds, B]
+    (the amplitude stream delayed by amp_window); ints i32 [10, B], flts
+    f32 [2, B], bit_fill i32 [B].  Returns ((ints', flts'), (byte_vals
+    i32, emits, eods, fires bool)), the planes [n_ds, B]."""
+    global stage_d_launches
+    if not _build.use_kernel(ints, flts, bit_fill, bits, amps, ratios,
+                             sub_amps):
+        return stage_d_plain(params, ints, flts, bit_fill, bits, amps,
+                             ratios, sub_amps)
+    _check_operands(ints, flts, bit_fill, bits, amps, ratios, sub_amps)
+    n_ds, B = bits.shape
+    new = dict(device=bits.device)
+    ints_out = torch.empty((N_I32, B), dtype=torch.int32, **new)
+    flts_out = torch.empty((N_F32, B), dtype=torch.float32, **new)
+    packed = torch.empty((n_ds, B), dtype=torch.int32, **new)
+    p = _build.ptr
+    with torch.cuda.device(bits.device):
+        err = _stage_d_entry()(
+            p(bits), p(amps), p(ratios), p(sub_amps), n_ds, B, p(ints),
+            p(flts), p(bit_fill), p(ints_out), p(flts_out), p(packed),
+            ctypes.byref(_kernel_coef(params)), _build.stream())
+    _build.raise_on_error(err, "fsk_stage_d")
+    stage_d_launches += 1
+    planes = (packed & 0xFF, (packed >> 8 & 1).bool(),
+              (packed >> 9 & 1).bool(), (packed >> 10 & 1).bool())
+    return (ints_out, flts_out), planes
+
+
 def stage_d_compact(params: FSKParams, ints: torch.Tensor,
                     flts: torch.Tensor, bit_fill: torch.Tensor,
                     bits: torch.Tensor, amps: torch.Tensor,
@@ -235,16 +301,8 @@ def stage_d_compact(params: FSKParams, ints: torch.Tensor,
                              sub_amps):
         return stage_d_compact_plain(params, ints, flts, bit_fill, bits,
                                      amps, ratios, sub_amps, maxb)
+    _check_operands(ints, flts, bit_fill, bits, amps, ratios, sub_amps)
     n_ds, B = bits.shape
-    _build.check(bits, "bits", torch.bfloat16, (n_ds, B))
-    _build.check(amps, "amps", torch.float32, (n_ds, B))
-    _build.check(ratios, "ratios", torch.float32, (n_ds, B))
-    _build.check(sub_amps, "sub_amps", torch.float32, (None, B))
-    if sub_amps.shape[0] < n_ds:
-        raise ValueError("sub_amps: needs at least n_ds rows")
-    _build.check(ints, "ints", torch.int32, (N_I32, B))
-    _build.check(flts, "flts", torch.float32, (N_F32, B))
-    _build.check(bit_fill, "bit_fill", torch.int32, (B,))
     new = dict(device=bits.device)
     ints_out = torch.empty((N_I32, B), dtype=torch.int32, **new)
     flts_out = torch.empty((N_F32, B), dtype=torch.float32, **new)
