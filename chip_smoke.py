@@ -33,9 +33,13 @@ Phases:
 
   1. the card: torch / CUDA versions, nvidia-smi name and power limit;
   2. build every kernel for sm_90a;
-  3. K1 and K2 against their plain PyTorch versions on the card, at
-     B=2048 on noisy chunks of distinct messages, with state carried;
-     K2 also at maxb > 64 (a 32768-sample piece at 1200 baud);
+  3. K1 and K2 against their plain PyTorch versions on the card, every
+     output exactly, at B=2048 on noisy chunks of distinct messages, with
+     state carried; K2 also at maxb > 64 (a 32768-sample piece at 1200
+     baud); the pipelines' edges: K1 and K7 at B = 1000 and 1 over
+     pieces of 1, 17, 0, 4801 and 65 samples (every stream mode on the
+     short ones) at ds = 80, 256 and 480, and K2 at B = 1001 and 1 with
+     an odd n_ds whose last, partial tile holds a firing step;
   4. the hard main path: ModemFarm(batch=4096, device="cuda") modulates
      and decodes 4096 distinct 13-byte messages exactly, counting
      launches; FSKCore round-trips b"Hello, World!";
@@ -53,7 +57,8 @@ Phases:
      exactly with 1 / 2 / 2 launches of K1 / K4 / K3, and an erased
      channel decodes to None;
   8. soft timings at B=2048 and 4096 (per decode, realtime channels,
-     each kernel beside its plain version and, for K4, torch.gather),
+     each kernel beside its plain version and, for K4, torch.gather over
+     window sums made beforehand, which is not K4's function),
      peak device memory, and a torch.profiler breakdown;
   9. K6 against its plain version on the card at B=2048: noisy DBPSK
      chunks of distinct messages with state carried over three chunks,
@@ -223,42 +228,33 @@ def _print_timing(name, t, card):
           f"{t['ops'] / 1e6:.1f} M ops) [{card}]")
 
 
-def _check_k1(params, state, ds_phase, x, errs):
-    """K1 vs plain on identical inputs; returns the kernel outputs."""
+def _check_k1(params, state, ds_phase, x, errs, quiet=False, **flags):
+    """K1 (or K7, ``emit_rsum=False``) vs plain on identical inputs, every
+    output exactly; returns the kernel outputs."""
     import torch
 
     from webaudio_modem_tpu_torch.ops.kernels import fsk_seq
 
     ds = params.ds_samples_per_bit
+    rsum = flags.get("emit_rsum", True)
     args = (params, ds_phase, state.front, state.ds_acc,
-            state.bit_tail[-ds:], x)
-    k = fsk_seq.seq(*args)
-    p = fsk_seq.seq_plain(*args)
+            state.bit_tail[-ds:] if rsum else None, x)
+    k = fsk_seq.seq(*args, **flags)
+    p = fsk_seq.seq_plain(*args, **flags)
     torch.cuda.synchronize()
-    front_k, acc_k, bits_k, amps_k, softs_k, rsum_k = k
-    front_p, acc_p, bits_p, amps_p, softs_p, _ = p
-    if bits_k.shape != bits_p.shape:
-        raise RuntimeError(f"K1 shape {bits_k.shape} vs {bits_p.shape}")
-    parts = {name: float((a - b).abs().max()) if a.numel() else 0.0
-             for name, a, b in (("softs", softs_k, softs_p),
-                                ("amps", amps_k, amps_p),
-                                ("front", front_k, front_p),
-                                ("ds_acc", acc_k, acc_p))}
-    err = max(parts.values())
-    errs.append(err)
-    if err > ATOL:
-        raise RuntimeError(f"K1 vs plain: max abs err {parts} > {ATOL}")
-    flips = bits_k != bits_p
-    n_flips = int(flips.sum())
-    if n_flips and float(softs_p[flips].abs().max()) >= FLIP_SOFT:
-        raise RuntimeError(f"K1: {n_flips} bits differ away from the "
-                           "slicer threshold")
-    ext = torch.cat([state.bit_tail[-ds:].float(), bits_k.float()])
-    cs = torch.cumsum(ext, 0)
-    if not torch.equal(cs[ds:] - cs[:-ds], rsum_k.float()):
-        raise RuntimeError("K1: rsum differs from the R of its own bits")
-    print(f"  K1 T={x.shape[0]} ds_phase={ds_phase}: max abs err {err:.3g}, "
-          f"bits differing {n_flips} of {bits_k.numel()}, rsum exact")
+    B = x.shape[1]
+    what = f"K1 T={x.shape[0]} B={B} ds={ds} ds_phase={ds_phase} {flags}"
+    for name, a, b in zip(("front", "ds_acc", "bits", "amps", "softs",
+                           "rsum"), k, p):
+        errs.append(_equal_or_raise(f"{what} {name}", a, b))
+    if rsum and k[2] is not None and ds <= 256:    # R exact in bf16
+        ext = torch.cat([state.bit_tail[-ds:].float(), k[2].float()])
+        cs = torch.cumsum(ext, 0)
+        if not torch.equal(cs[ds:] - cs[:-ds], k[5].float()):
+            raise RuntimeError(f"{what}: rsum differs from the R of its "
+                               "own bits")
+    if not quiet:
+        print(f"  {what}: every output identical to plain")
     return k
 
 
@@ -289,6 +285,134 @@ def _check_k2(params, state, bits, amps, rsum, errs):
           f"{int(k[3].sum())}, syncs {int(k[5].sum())}, "
           f"EODs {int(k[4].sum())}")
     return k
+
+
+# K1's pipeline hands tiles of 32 samples between its warps
+# (csrc/fsk_seq.cu kTile); K2 copies tiles of 16 steps ahead
+# (csrc/fsk_framing.cu kTile)
+K1_TILE = 32
+K2_TILE = 16
+EDGE_BATCHES = (1000, 1)
+# pieces carried through one state: T = 1 opens a group and decides
+# nothing, T < K1_TILE completes it (a ds_phase prefix), T = 0, a T that
+# is not a multiple of K1_TILE, and a short piece after it
+EDGE_PIECES = (1, 17, 0, CHUNK + 1, 2 * K1_TILE + 1)
+K2_EDGE_BATCH = 1001
+
+
+def _k1_edges(device, rng, errs):
+    """K1 and K7 exactly equal to plain at the pipeline's edges: B = 1000
+    and 1 (partial and nearly empty blocks), the EDGE_PIECES lengths with
+    the state and ds_phase carried, at the bench configuration (ds = 80),
+    at ds = 256 (1200 baud at 614.4 kHz, the largest R ring) and at ds =
+    480 (50 baud; R there needs more than 48 KB of shared memory).  Every
+    stream mode on the short pieces; the long piece in the all-streams
+    mode (K7 at ds = 480)."""
+    import itertools
+
+    from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
+    from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+
+    modes = [dict(emit_bits=b, emit_amps=a, emit_csum=c, emit_rsum=r)
+             for b, a, c, r in itertools.product((True, False), repeat=4)]
+    cases = ((_bench_config(), EDGE_BATCHES),
+             (FSKConfig(sample_rate=614400), EDGE_BATCHES[:1]),
+             (FSKConfig(baud_rate=50, mark_frequency=1270,
+                        space_frequency=1070), EDGE_BATCHES))
+    for config, batches in cases:
+        params = FSKParams.from_config(config)
+        ds = params.ds_samples_per_bit
+        long_mode = dict(emit_rsum=ds <= 256)
+        for B in batches:
+            sig = fsk_mod.modulate_batch(params, _messages(rng, B, 4),
+                                         device)
+            x_all = _awgn(sig, 20.0, rng, device)
+            if x_all.shape[1] < sum(EDGE_PIECES):
+                raise RuntimeError("edge signal too short")
+            state = fsk_demod.init_state(params, B, device)
+            ds_phase, start, n_checks = 0, 0, 0
+            for T in EDGE_PIECES:
+                piece = x_all[:, start:start + T]
+                x = piece.t().contiguous()
+                for flags in modes if T <= 4 * K1_TILE else [long_mode]:
+                    _check_k1(params, state, ds_phase, x, errs, quiet=True,
+                              **flags)
+                    n_checks += 1
+                state, _ = fsk_demod.demod_chunk(params, ds_phase, state,
+                                                 piece)
+                ds_phase = (ds_phase + T) % params.downsample_ratio
+                start += T
+            print(f"  K1 edges ds={ds} B={B}: pieces {EDGE_PIECES} with "
+                  f"state carried, {n_checks} calls (16 stream modes on "
+                  f"the short pieces, {long_mode} on the long one) "
+                  "identical to plain")
+
+
+def _k2_edges(device, rng, errs):
+    """K2 exactly equal to plain at an odd B and an odd n_ds whose last,
+    partial K2_TILE holds a firing step, and at B = 1 on that channel."""
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, fsk_seq
+
+    params = FSKParams.from_config(_bench_config())
+    ds = params.ds_samples_per_bit
+    B = K2_EDGE_BATCH
+    sig = fsk_mod.modulate_batch(params, _messages(rng, B, 13), device)
+    # each channel delayed by its own 0..4095 samples, so that syncs
+    # fall on many steps
+    L = sig.shape[1]
+    delays = torch.from_numpy(rng.integers(0, 4096, B)).to(device)
+    idx = torch.arange(L + 4096, device=device)[None, :] - delays[:, None]
+    shifted = torch.where((idx >= 0) & (idx < L),
+                          sig.gather(1, idx.clamp(0, L - 1)), 0.0)
+    x_all = _awgn(shifted, 20.0, rng, device)
+    state = fsk_demod.init_state(params, B, device)
+    for c in range(x_all.shape[1] // CHUNK):
+        piece = x_all[:, c * CHUNK:(c + 1) * CHUNK]
+        _, _, bits, amps, _, rsum = fsk_seq.seq(
+            params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
+            piece.t().contiguous())
+        ratios = fsk_demod._sync_ratios_from_r(params, state.r_tail, rsum)
+        ints, flts = fsk_demod._framing_carry(params, state)
+        planes = (bits, amps, ratios, torch.cat([state.amp_tail, amps]))
+        full = fsk_framing.stage_d_compact(
+            params, ints, flts, state.bit_fill, *planes,
+            fsk_demod.max_bytes(params, bits.shape[0]))
+        fire_t = full[6].cpu().numpy()
+        ok = [(int(f), b) for b, f in enumerate(fire_t)
+              if f >= K2_TILE and (f + 1) % K2_TILE]
+        if ok:
+            break
+        state, _ = fsk_demod.demod_chunk(params, 0, state, piece)
+    else:
+        raise RuntimeError("K2 edges: no fire to place in a partial tile")
+    f, b_fire = max(ok)
+    n_ds = f + 1 if (f + 1) % 2 else f + 2       # odd, f in its last tile
+    assert n_ds % 2 and (n_ds - 1) // K2_TILE * K2_TILE <= f < n_ds
+    for label, cols in ((f"B={B}", slice(None)),
+                        ("B=1", slice(b_fire, b_fire + 1))):
+        def cut(t, rows=n_ds):
+            return t[:rows, cols].contiguous()
+        args = (params, cut(ints, None), cut(flts, None),
+                state.bit_fill[cols].contiguous(), cut(bits), cut(amps),
+                cut(ratios), cut(planes[3], params.amp_window + n_ds),
+                fsk_demod.max_bytes(params, n_ds))
+        k = fsk_framing.stage_d_compact(*args)
+        p = fsk_framing.stage_d_compact_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("ints", "flts", "bytes_out", "byte_count",
+                               "eod_fired", "sync_fired", "fire_t"), k, p):
+            errs.append(_equal_or_raise(f"K2 edges {label} {name}", a, b))
+        col = b_fire if label != "B=1" else 0
+        if int(k[6][col]) != f:
+            raise RuntimeError(f"K2 edges {label}: the fire at step {f} "
+                               "did not run in the last tile")
+        print(f"  K2 edges {label} n_ds={n_ds} (last tile of "
+              f"{n_ds % K2_TILE} steps holds the fire at step {f}): "
+              f"identical to plain; syncs {int(k[5].sum())}")
 
 
 def phase_kernels_vs_plain(device, rng):
@@ -336,6 +460,8 @@ def phase_kernels_vs_plain(device, rng):
         raise RuntimeError(f"maxb > 64 piece: {bad} channels decoded wrong")
     print(f"  maxb {k[2].shape[1]} > 64: {CHECK_BATCH} x 70 bytes exact "
           f"(ds={ds})")
+    _k1_edges(device, rng, errs["fsk_seq"])
+    _k2_edges(device, rng, errs["fsk_framing"])
     return {name: max(v) for name, v in errs.items()}
 
 
@@ -408,6 +534,13 @@ def phase_timings(device, rng, card):
             print(f"  demod_chunk B={B} {path}: {ms:.3f} ms per 0.1 s "
                   f"chunk, {B * AUDIO_S_PER_CHUNK / (ms / 1e3):,.0f} "
                   f"realtime channels [{card}]")
+            if B == MAIN_BATCH and not plain:
+                try:
+                    _profile(f"hard demod_chunk B={B}",
+                             lambda: [step() for _ in range(10)], 10, ms,
+                             card)
+                except RuntimeError as exc:     # a measurement, not a check
+                    print(f"  profile: torch.profiler failed: {exc}")
 
         if B == MAIN_BATCH:
             # each kernel beside its plain version at the main path's shape
@@ -815,18 +948,27 @@ def phase_soft_timings(device, rng, card):
                                      kw["virt0"])
             idx = align.rows(base, kw["n_out"], kw["stride"],
                              kw["pad_lo"]).clamp(0, wsum.shape[0] - 1)
-            timings[f"align_{name}"] = _timing(
+            # no one PyTorch call computes K4's function (the windows'
+            # difference over the csum plane, then the gather): its library
+            # time is none, and torch.gather over window sums made
+            # beforehand is timed beside it as a reference only
+            t = _timing(
                 f"{name} window: {kw['n_out']} x {B}, stride "
                 f"{kw['stride']}",
                 _cuda_ms(lambda: align.aligned_wsum(csum, base, **kw), 20),
                 _cuda_ms(lambda: align.aligned_wsum_plain(csum, base, **kw),
                          5),
                 _align_bytes(csum, base, **kw),
-                kw["n_out"] * B * K4_OPS_PER_OUT,
-                library_ms=_cuda_ms(lambda: torch.gather(wsum, 0, idx), 20))
+                kw["n_out"] * B * K4_OPS_PER_OUT)
+            t["gather_only_ms"] = _cuda_ms(
+                lambda: torch.gather(wsum, 0, idx), 20)
+            timings[f"align_{name}"] = t
         for name, t in timings.items():
             if isinstance(t, dict) and "shape" in t:
                 _print_timing(name, t, card)
+                if "gather_only_ms" in t:
+                    print(f"    torch.gather alone, over window sums made "
+                          f"beforehand: {t['gather_only_ms']:.4f} ms")
         try:
             _profile(f"soft decode B={B}", lambda: [
                 soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
@@ -2257,7 +2399,9 @@ def main() -> int:
         row("viterbi", "viterbi.cu", "viterbi.py:82", soft["viterbi_header"],
             others("viterbi_body", "viterbi_payload-100")),
         row("align", "align.cu", "align.py:75", soft["align_header"],
-            others("align_body")),
+            {**others("align_body"),
+             "gather_only_ms": {n: soft[f"align_{n}"]["gather_only_ms"]
+                                for n in ("header", "body")}}),
         row("psk_seq", "psk_seq.cu", "psk_seq.py:54", psk["psk_seq"],
             {"modes": {
                 "D=20 with R (the DBPSK path)": "the row's numbers",

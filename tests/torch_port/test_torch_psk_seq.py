@@ -256,15 +256,18 @@ def test_plain_chunking_is_exact(baud, sample_rate):
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """A library is keyed by its source and every csrc header it
     includes: editing the front-end header K1 and K6 share rebuilds both,
-    and only them."""
+    and only them; editing the pipelines' hand-over header rebuilds K1
+    and K2, and only them."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     assert [h.name for h in _build.headers("psk_seq")] == ["seq_front.cuh"]
-    assert [h.name for h in _build.headers("fsk_seq")] == ["seq_front.cuh"]
-    before = {n: _build.library_path(n) for n in _build.names()}
-    header = csrc / "seq_front.cuh"
-    header.write_bytes(header.read_bytes() + b"\n")
-    after = {n: _build.library_path(n) for n in _build.names()}
-    assert {n for n in before if before[n] != after[n]} == {"fsk_seq",
-                                                            "psk_seq"}
+    assert [h.name for h in _build.headers("fsk_seq")] == ["seq_front.cuh",
+                                                           "warp_pipe.cuh"]
+    for name, rebuilt in (("seq_front.cuh", {"fsk_seq", "psk_seq"}),
+                          ("warp_pipe.cuh", {"fsk_seq", "fsk_framing"})):
+        before = {n: _build.library_path(n) for n in _build.names()}
+        header = csrc / name
+        header.write_bytes(header.read_bytes() + b"\n")
+        after = {n: _build.library_path(n) for n in _build.names()}
+        assert {n for n in before if before[n] != after[n]} == rebuilt

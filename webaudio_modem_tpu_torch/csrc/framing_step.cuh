@@ -80,7 +80,6 @@ __device__ __forceinline__ FramingEvents framing_step(
   // rolling mean over the last amp_window amplitudes
   s.run_sum = s.run_sum + amp - sub;
   s.fillv = min(s.fillv + 1, c.amp_window);
-  const float mean = s.run_sum / static_cast<float>(s.fillv);
 
   int counter1 = s.counter + 1;
   if (counter1 >= c.wrap) counter1 -= c.wrap;
@@ -125,7 +124,9 @@ __device__ __forceinline__ FramingEvents framing_step(
   s.started = (reset_full || drop_frame) ? 0 : (fire ? 1 : s.started);
   s.counter = reset_full ? 0 : counter1;
   s.sil = reset_full ? 0 : sil1;
-  if (fire) s.thr = mean * 0.1f;
+  // the window mean only where a fire reads it: the same IEEE quotient
+  // of the updated sum and fill, with its divide off the step's chain
+  if (fire) s.thr = (s.run_sum / static_cast<float>(s.fillv)) * 0.1f;
   s.accum = clear ? 0 : (post_keep ? (decide ? 0 : accum1) : s.accum);
   s.count = clear ? 0 : (post_keep ? (decide ? 0 : count1) : s.count);
   s.bsc = clear ? 0 : (post_keep ? bsc1 : s.bsc);

@@ -60,20 +60,19 @@ struct Front {
     qx1 = s[11]; qx2 = s[12]; qy1 = s[13]; qy2 = s[14];
   }
 
+  // rows first..14 (the warps of K1's pipeline each store their own)
   __device__ __forceinline__ void store(float* __restrict__ out, size_t Bs,
-                                        int b) const {
+                                        int b, int first = 0) const {
     const float r[kFrontRows] = {g,   px1, px2, py1, py2, nc,  ns, ix1,
                                  ix2, iy1, iy2, qx1, qx2, qy1, qy2};
 #pragma unroll
-    for (int k = 0; k < kFrontRows; ++k) out[k * Bs + b] = r[k];
+    for (int k = 0; k < kFrontRows; ++k)
+      if (k >= first) out[k * Bs + b] = r[k];
   }
 
-  // One full-rate sample.  The I/Q low-pass outputs are the new iy1 and
-  // qy1, and callers read them there: handing them out through reference
-  // arguments cost K1 3.5 % on an H100 (the compiler scheduled the
-  // unrolled loop worse), a return value or none costs nothing.
-  __device__ __forceinline__ void step(const FskSeqCoef& c, float xt) {
-    // AGC
+  // The AGC: returns the gained sample.  Its gain is the front end's
+  // slowest recurrence (an IEEE divide on the chain).
+  __device__ __forceinline__ float agc(const FskSeqCoef& c, float xt) {
     float y;
     if (c.agc_enabled) {
       y = xt * g;
@@ -88,10 +87,18 @@ struct Front {
     } else {
       y = xt;
     }
-    // band-pass pre-filter
+    return y;
+  }
+
+  // The band-pass pre-filter, then the NCO mix with the phasor rotated
+  // and renormalized to first order, then the I/Q low-pass biquads.  The
+  // I/Q low-pass outputs are the new iy1 and qy1, and callers read them
+  // there: handing them out through reference arguments cost K1 3.5 % on
+  // an H100 (the compiler scheduled the unrolled loop worse), a return
+  // value or none costs nothing.
+  __device__ __forceinline__ void filter_mix(const FskSeqCoef& c, float y) {
     const float f = biquad(c.pre, y, px1, px2, py1, py2);
     px2 = px1; px1 = y; py2 = py1; py1 = f;
-    // NCO mix, then rotate the phasor and renormalize to first order
     const float i_r = f * nc;
     const float q_r = f * ns;
     const float nc2 = nc * c.cw - ns * c.sw;
@@ -99,11 +106,15 @@ struct Front {
     const float kk = 1.5f - 0.5f * (nc2 * nc2 + ns2 * ns2);
     nc = nc2 * kk;
     ns = ns2 * kk;
-    // I/Q low-pass
     const float fi = biquad(c.iq, i_r, ix1, ix2, iy1, iy2);
     ix2 = ix1; ix1 = i_r; iy2 = iy1; iy1 = fi;
     const float fq = biquad(c.iq, q_r, qx1, qx2, qy1, qy2);
     qx2 = qx1; qx1 = q_r; qy2 = qy1; qy1 = fq;
+  }
+
+  // One full-rate sample (K6 runs the two parts in one thread).
+  __device__ __forceinline__ void step(const FskSeqCoef& c, float xt) {
+    filter_mix(c, agc(c, xt));
   }
 };
 

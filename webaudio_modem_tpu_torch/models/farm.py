@@ -48,9 +48,15 @@ def _resolve_family(config):
 
 
 class ModemFarm:
-    def __init__(self, config, batch: int, *, device="cuda", mesh=None):
+    def __init__(self, config, batch: int, *, device="cuda", mesh=None,
+                 donate: bool = True):
         """``config`` selects the model family: an FSKConfig runs the FSK
-        pipeline, a PSKConfig DBPSK on the same shared stages."""
+        pipeline, a PSKConfig DBPSK on the same shared stages.
+
+        ``donate`` is the reference's buffer-donation switch, accepted
+        for its callers: the chunk step here returns new state tensors
+        and donates nothing, so state tensors a caller holds stay valid
+        and readable for either value."""
         self._ops, self.params = _resolve_family(config)
         if mesh is not None:
             raise NotImplementedError(
@@ -115,20 +121,30 @@ class ModemFarm:
             metrics.incr("farm.bytes_decoded", total)
         return [bytes(c) for c in collected]
 
-    def demodulate_stream(self, samples, chunk_size: int) -> List[bytes]:
+    def demodulate_stream(self, samples, chunk_size: int,
+                          group: int = 8) -> List[bytes]:
         """Throughput mode: the same per-chunk computation as
         ``demodulate`` (byte for byte the same decode), but the outputs
-        stay on the device until the last chunk, so the host does not
-        wait for the card between chunks."""
+        of ``group`` consecutive chunks stay on the device, and the host
+        collects them only after the group's last chunk (or the stream's
+        last chunk), so it waits for the card once per group."""
+        if group < 1:
+            raise ValueError(f"group must be >= 1, got {group}")
         x = self._as_samples(samples)
-        outs = [self.demodulate_chunk(x[:, s:s + chunk_size])
-                for s in range(0, x.shape[1], chunk_size)]
+        T = x.shape[1]
         collected = [bytearray() for _ in range(self.batch)]
-        for out in outs:
-            counts = out.byte_count.cpu().numpy()
-            vals = out.bytes_out.cpu().numpy()
-            for b in np.nonzero(counts)[0]:
-                collected[b] += bytes(vals[b, :counts[b]])
+        pending = []
+        for start in range(0, T, chunk_size):
+            pending.append(self.demodulate_chunk(
+                x[:, start:start + chunk_size]))
+            if len(pending) < group and start + chunk_size < T:
+                continue
+            for out in pending:
+                counts = out.byte_count.cpu().numpy()
+                vals = out.bytes_out.cpu().numpy()
+                for b in np.nonzero(counts)[0]:
+                    collected[b] += bytes(vals[b, :counts[b]])
+            pending = []
         total = sum(len(c) for c in collected)
         if total:
             metrics.incr("farm.bytes_decoded", total)
@@ -147,12 +163,15 @@ class ModemFarm:
         checkpoint.save_state(path, self.state, self.config, self._ds_phase)
 
     @classmethod
-    def restore(cls, path, *, device="cuda") -> "ModemFarm":
+    def restore(cls, path, *, device="cuda",
+                donate: bool = True) -> "ModemFarm":
         """Resume a farm from a checkpoint (written by the port or by the
         JAX package) on ``device``; decoding continues bit-identically
-        from where the snapshot was taken."""
+        from where the snapshot was taken.  ``donate`` as in the
+        constructor."""
         state, config, ds_phase = checkpoint.load_state(path, device=device)
-        farm = cls(config, int(state.bit_fill.shape[0]), device=device)
+        farm = cls(config, int(state.bit_fill.shape[0]), device=device,
+                   donate=donate)
         farm.state = state
         farm._ds_phase = ds_phase
         return farm
