@@ -60,21 +60,27 @@ Phases:
      each kernel beside its plain version and, for K4, torch.gather over
      window sums made beforehand, which is not K4's function),
      peak device memory, and a torch.profiler breakdown;
-  9. K6 against its plain version on the card at B=2048: noisy DBPSK
-     chunks of distinct messages with state carried over three chunks,
-     one of odd length (a ds_phase prefix); K6 without R at 50 baud
-     (D = 480, rings in shared memory) and at 50 baud and 96 kHz
-     (D = 960, rings in device memory);
+  9. K6 against its plain version on the card, every output exactly, at
+     B=2048: noisy DBPSK chunks of distinct messages with state carried
+     over three chunks, one of odd length (a ds_phase prefix); K6
+     without R at 50 baud (D = 480, rings in shared memory) and at 50
+     baud and 96 kHz (D = 960, rings in device memory); the pipeline's
+     edges: B = 1001 and 1 over pieces of 1, 17, 0, 4801 and 65 samples
+     with state carried, at D = 20, at D = 5 (shorter than a G tile) and
+     at D = 960;
  10. the DBPSK main path: ModemFarm(PSKConfig(), batch=4096) decodes 4096
      distinct 13-byte messages exactly, counting launches; PSKCore
      round-trips b"Hello, World!"; the signal quality is finite;
  11. DBPSK timings: demod_chunk per chunk at B=2048 and 4096 (and its
      plain version once), K6 beside its plain version and its bound at
-     D = 20, 480 and 960, and K6's ring placement timed in turns against
-     a copy built with its rings in device memory at every D;
+     D = 20 (also on tools/turns.py seq's shorter input), 480 and 960,
+     and K6's ring placement timed in turns against a copy built with its
+     rings in device memory at every D;
  12. K5 against its plain version, exactly (0 mismatches), at the blind
      path's window shapes [7200 / 14400 / 91200, 4096] and at [37, 3]
-     and [0, 5]; against np.cumsum of the host copy at two of them;
+     and [0, 5]; against np.cumsum of the host copy at two of them; at
+     its edges (B = 1 and 4097, a base only 4-byte aligned, ring windows
+     that wrap past the last row at B = 4096 and 1001);
  13. the blind main path at B=4096, two 16-byte frames per channel at
      random offsets (silence gaps of 2000-9000 samples): clean (every
      payload exact and in per-channel order; a frame not delivered only
@@ -128,8 +134,6 @@ CHUNK = 4800                      # 0.1 s at 48 kHz
 AUDIO_S_PER_CHUNK = CHUNK / 48000
 MAIN_BATCH = 4096
 CHECK_BATCH = 2048
-ATOL = 1e-4                       # softs, amps and state, kernel vs plain
-FLIP_SOFT = 1e-5                  # a bit may differ only this near 0
 SOFT_BATCHES = (2048, 4096)
 SOFT_PAYLOAD = 16                 # bytes (bench.py --family soft)
 SOFT_SNR_DB = 8.0
@@ -983,8 +987,9 @@ def phase_soft_timings(device, rng, card):
 # The DBPSK path
 # ---------------------------------------------------------------------------
 
-# K6 keeps its I/Q rings in shared memory up to D = 908 and in device
-# memory beyond: D = 960 (50 baud at 96 kHz) holds the device placement
+# K6 keeps its I/Q rings in shared memory up to D = 764
+# (psk_seq.SHARED_RING_MAX_D) and in device memory beyond: D = 960
+# (50 baud at 96 kHz) holds the device placement
 PSK_DEVICE_RING_CONFIG = dict(sample_rate=96000, baud_rate=50)
 
 
@@ -1001,38 +1006,56 @@ def _psk_args(state, ds_phase, x, emit_rsum):
             state.bit_tail[-D:] if emit_rsum else None, x)
 
 
-def _check_k6(params, state, ds_phase, x, errs, emit_rsum=True):
-    """K6 vs plain on identical inputs: bits, rsum and rings exact; amps,
-    softs, front and ds_acc within ATOL (and the report says whether
-    they are exact)."""
-    import torch
-
+def _check_k6(params, state, ds_phase, x, errs, emit_rsum=True,
+              quiet=False):
+    """K6 vs plain on identical inputs: every output exactly."""
     from webaudio_modem_tpu_torch.ops.kernels import psk_seq
 
     args = (params, *_psk_args(state, ds_phase, x, emit_rsum))
     p = psk_seq.seq_plain(*args, emit_rsum=emit_rsum)
     k = psk_seq.seq(*args, emit_rsum=emit_rsum)
-    torch.cuda.synchronize()
-    names = ("front", "ds_acc", "ring", "bits", "amps", "softs", "rsum")
-    parts = {}
-    for name, a, b in zip(names, k, p):
-        if name in ("ring", "bits", "rsum"):
-            errs.append(_equal_or_raise(f"K6 {name}", a, b))
-            continue
-        if a.shape != b.shape:
-            raise RuntimeError(f"K6 {name}: shape {a.shape} vs {b.shape}")
-        parts[name] = float((a - b).abs().max()) if a.numel() else 0.0
-    err = max(parts.values())
-    errs.append(err)
-    if err > ATOL:
-        raise RuntimeError(f"K6 vs plain: max abs err {parts} > {ATOL}")
-    inexact = ", ".join(sorted(n for n, e in parts.items() if e > 0))
+    for name, a, b in zip(("front", "ds_acc", "ring", "bits", "amps",
+                           "softs", "rsum"), k, p):
+        errs.append(_equal_or_raise(f"K6 {name}", a, b))
     D = params.ds_samples_per_bit
-    exact = "bits, rings" + (", rsum" if emit_rsum else "")
-    print(f"  K6 T={x.shape[0]} ds_phase={ds_phase} D={D} R={emit_rsum} "
-          f"(rings in {'device' if D > 908 else 'shared'} memory): {exact} "
-          f"exact; max abs err {err:.3g} "
-          f"({'inexact: ' + inexact if inexact else 'all exact'})")
+    where = "device" if D > psk_seq.SHARED_RING_MAX_D else "shared"
+    if not quiet:
+        print(f"  K6 T={x.shape[0]} ds_phase={ds_phase} D={D} R={emit_rsum} "
+              f"B={x.shape[1]} (rings in {where} memory): every output "
+              "identical to plain")
+
+
+# K6 at its pipeline's edges: partial blocks (B = 1001, 1) over the
+# EDGE_PIECES with state carried, at D = 20 (PSKConfig()), D = 5 (4800
+# baud: the delayed sample lies in the same G tile) and D = 960 (rings
+# in device memory, where lanes past B must leave lane B - 1's ring alone)
+K6_EDGE_CASES = (({}, 1001), ({}, 1), ({"baud_rate": 4800}, 1001),
+                 (PSK_DEVICE_RING_CONFIG, 1001))
+
+
+def _k6_edges(device, rng, errs):
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import psk
+
+    for overrides, B in K6_EDGE_CASES:
+        params = _psk_params(**overrides)
+        D = params.ds_samples_per_bit
+        sig = psk.modulate_batch(params, _messages(rng, B, 4), device)
+        sig = torch.nn.functional.pad(
+            sig, (0, max(0, sum(EDGE_PIECES) - sig.shape[1])))
+        x_all = _awgn(sig, 20.0, rng, device)
+        state = psk.init_state(params, B, device)
+        ds_phase = start = 0
+        for T in EDGE_PIECES:
+            piece = x_all[:, start:start + T]
+            _check_k6(params, state, ds_phase, piece.t().contiguous(), errs,
+                      emit_rsum=D <= 256, quiet=True)
+            state, _ = psk.demod_chunk(params, ds_phase, state, piece)
+            ds_phase = (ds_phase + T) % params.downsample_ratio
+            start += T
+        print(f"  K6 edges D={D} B={B} R={D <= 256}: pieces {EDGE_PIECES} "
+              "with state carried identical to plain")
 
 
 def phase_psk_kernels_vs_plain(device, rng):
@@ -1072,6 +1095,7 @@ def phase_psk_kernels_vs_plain(device, rng):
         x = _awgn(sig[:, 3 * CHUNK:], 20.0, rng, device)
         _check_k6(p50, state, 0, x.t().contiguous(), errs, emit_rsum=False)
         del sig
+    _k6_edges(device, rng, errs)
     return {"psk_seq": max(errs)}
 
 
@@ -1157,9 +1181,17 @@ def phase_psk_timings(device, rng, card):
                 "ms": ms, "realtime_channels": channels}
 
         if B == MAIN_BATCH:
-            state = st[0]
-            args = (params, *_psk_args(state, 0, chunks[0].t().contiguous(),
+            # K6 on two inputs: the first chunk after the 28 cycled chunk
+            # steps above (its row's input) and, as tools/turns.py seq,
+            # the rest of the messages after the first chunk from a fresh
+            # state (T = 2080)
+            args = (params, *_psk_args(st[0], 0, chunks[0].t().contiguous(),
                                        True))
+            st1, _ = psk.demod_chunk(params, 0, psk.init_state(params, B,
+                                                               device),
+                                     chunks[0])
+            turns = (params, *_psk_args(
+                st1, 0, sig[:, CHUNK:2 * CHUNK].t().contiguous(), True))
             out = psk_seq.seq(*args)
             n_dec = out[3].shape[0]
             plain_ms = _cuda_ms(lambda: psk_seq.seq_plain(*args), 1)
@@ -1176,6 +1208,11 @@ def phase_psk_timings(device, rng, card):
                 _nbytes(*args[2:], *out),
                 CHUNK * B * K1_OPS_PER_SAMPLE
                 + n_dec * B * K6_OPS_PER_DECISION)
+            timings["psk_seq"]["turns_input_ms"] = _cuda_ms(
+                lambda: psk_seq.seq(*turns), 20)
+            print(f"  psk_seq D=20 B={B} on the turns' input "
+                  f"(T={turns[-1].shape[0]}): "
+                  f"{timings['psk_seq']['turns_input_ms']:.4f} ms [{card}]")
             _print_timing("psk_seq", timings["psk_seq"], card)
             placement_cases[f"D=20, with R, B={B}"] = (args, {})
     # without R at D = 480 (rings in shared memory) and D = 960 (in
@@ -1258,6 +1295,15 @@ def _time_placements(cases, card):
 # (38 quanta, the receiver's max_payload)
 CSUM_SHAPES = ((7200, 4096), (14400, 4096), (91200, 4096))
 CSUM_SMALL_SHAPES = ((37, 3), (0, 5))
+# K5's edges, windows of a ring as the blind receiver reads them:
+# (ring rows, B, first row, rows, base offset in floats); B = 1 and 4097
+# (partial blocks), a base only 4-byte aligned, windows that wrap past
+# the ring's last row at B = 4096 and at an odd B (rows misaligned for
+# 16-byte copies), and a partial last stage (n not a multiple of 128)
+CSUM_EDGE_CASES = ((14400, 1, 0, 14400, 0), (7200, 4097, 0, 7200, 0),
+                   (7200, 4096, 0, 7157, 1),
+                   (38400, 4096, 33600, 14400, 0),
+                   (38400, 1001, 33600, 7200, 3))
 BLIND_GAPS = (2000, 9000)         # silence between frames, samples
 PLAIN_RUN_BATCH = 256
 DECODER_CHANNELS = 4              # single channels through SoftFrameDecoder
@@ -1297,6 +1343,20 @@ def phase_cumsum_vs_plain(device):
         if bad:
             raise RuntimeError(f"K5 [{n}, {B}] is not exact")
         del x, k, p
+    for rows, B, start, n, offset in CSUM_EDGE_CASES:
+        flat = torch.randn(offset + rows * B, generator=gen, device=device)
+        ring = flat[offset:].view(rows, B)
+        k = cumsum0.csum0(ring, start, n)
+        p = cumsum0.csum0_plain(ring, start, n)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K5 window of {n} rows from {start} of a "
+                        f"[{rows}, {B}] ring", k, p)
+        wraps = start + n > rows
+        print(f"  K5 window of {n} rows from row {start} of a [{rows}, {B}] "
+              f"ring (base {ring.data_ptr() % 16} bytes past 16-byte "
+              f"alignment{', wrapping' if wraps else ''}): identical to "
+              "plain")
+        del flat, ring, k, p
     return 0.0
 
 
@@ -2408,6 +2468,7 @@ def main() -> int:
                 **{psk[n]["shape"]: {k: psk[n][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by")}
                    for n in ("psk_seq_d480", "psk_seq_d960")}},
+             "turns_input_ms": psk["psk_seq"]["turns_input_ms"],
              "ring_placement_ms": psk["placements"],
              "demod_chunk_ms": {n: psk[n]["ms"] for n in (
                  "demod_chunk_B2048", "demod_chunk_B4096",

@@ -11,16 +11,32 @@
 
 namespace wam {
 
-struct HostCopy { void* dst; unsigned value; };
+struct HostCopy { void* dst; unsigned char bytes[16]; int size; };
 extern thread_local std::vector<HostCopy> host_open;
 extern thread_local std::deque<std::vector<HostCopy>> host_groups;
 
 inline void bar_sync(int id, int threads) { wam_barrier(id, threads, true); }
 inline void bar_arrive(int id, int threads) { wam_barrier(id, threads, false); }
+// a copy of `size` bytes; its source is read when the copy starts, as
+// the card may, and a misaligned address fails the launch as it faults on
+// the card
+inline HostCopy host_copy(void* dst, const void* src, int size) {
+  HostCopy c{dst, {}, size};
+  if (reinterpret_cast<uintptr_t>(src) % size ||
+      reinterpret_cast<uintptr_t>(dst) % size) {
+    std::lock_guard<std::mutex> lk(wam_mu);
+    fprintf(stderr, "cp.async of %d bytes: address not aligned\n", size);
+    wam_failed = true;
+    return c;
+  }
+  memcpy(c.bytes, src, size);
+  return c;
+}
 inline void cp_async4(void* dst, const void* src) {
-  unsigned v;
-  memcpy(&v, src, 4);
-  host_open.push_back({dst, v});
+  host_open.push_back(host_copy(dst, src, 4));
+}
+inline void cp_async16(void* dst, const void* src) {
+  host_open.push_back(host_copy(dst, src, 16));
 }
 inline void cp_async_commit() {
   host_groups.push_back(host_open);
@@ -29,7 +45,8 @@ inline void cp_async_commit() {
 template <int kPending>
 inline void cp_async_wait() {
   while (static_cast<int>(host_groups.size()) > kPending) {
-    for (const HostCopy& c : host_groups.front()) memcpy(c.dst, &c.value, 4);
+    for (const HostCopy& c : host_groups.front())
+      memcpy(c.dst, c.bytes, c.size);
     host_groups.pop_front();
   }
 }

@@ -59,3 +59,29 @@ def test_k1_csum_mode_plain_is_k5_without_its_zero_row():
     x = torch.from_numpy(_randn(6, 50, 3))
     np.testing.assert_array_equal(fsk_seq.csum_strict(x).numpy(),
                                   _np_csum0(x.numpy())[1:])
+
+
+@pytest.mark.parametrize("rows, B, start, n", [(600, 7, 500, 300),
+                                               (600, 7, 100, 300),
+                                               (600, 7, 599, 600),
+                                               (24, 3, 0, 24)],
+                         ids=["wraps", "inside", "whole_ring_wrapped",
+                              "whole_ring"])
+def test_ring_window_equals_the_concatenated_rows(rows, B, start, n):
+    """A window of a ring read in place (rows start.., then 0.. past the
+    last row) gives bit for bit the prefix sum of the two row ranges
+    concatenated, as the blind receiver copied them before."""
+    ring = torch.from_numpy(_randn(rows, rows, B))
+    cat = torch.cat([ring[start:start + n], ring[:max(0, start + n - rows)]])
+    assert cat.shape[0] == n
+    got = cumsum0.csum0(ring, start, n)
+    assert torch.equal(got, cumsum0.csum0(cat))
+    assert torch.equal(got, cumsum0.csum0_plain(ring, start, n))
+    np.testing.assert_array_equal(got.numpy(), _np_csum0(cat.numpy()))
+
+
+@pytest.mark.parametrize("start, n", [(-1, 3), (24, 1), (0, 25), (3, -1)])
+def test_ring_window_must_fit_the_ring(start, n):
+    ring = torch.zeros((24, 3))
+    with pytest.raises(ValueError, match="does not fit"):
+        cumsum0.csum0(ring, start, n)

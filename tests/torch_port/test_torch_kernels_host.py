@@ -1,4 +1,4 @@
-"""The CUDA sources of K1 / K7, K2, K8 and K6 built for the CPU with g++
+"""The CUDA sources of K1 / K7, K2, K8, K6 and K5 built for the CPU with g++
 over a host emulation of CUDA (``host_cuda/``), against their plain
 versions, through the port's own wrappers.
 
@@ -10,7 +10,7 @@ their edges (partial blocks, partial tiles, T = 0, odd B, a misaligned
 bits plane) are exercised by the CPU suite: a barrier that never
 completes fails the launch instead of hanging.
 
-Tolerances: K2 and K8 exactly (integer state machine and IEEE f32
+Tolerances: K2, K8 and K5 exactly (integer state machine and IEEE f32
 arithmetic, no transcendental).  K1 and K6 run ``atan2f`` from the
 host's C library where the plain versions run torch's, which may round
 differently: floats within atol 1e-4, a sliced bit may differ only where
@@ -35,11 +35,12 @@ from torch_port_helpers import random_messages, signals
 from webaudio_modem_tpu_torch.models import psk as psk_model
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.ops import fsk_demod, psk
-from webaudio_modem_tpu_torch.ops.kernels import (_build, fsk_framing,
-                                                  fsk_seq, psk_seq)
+from webaudio_modem_tpu_torch.ops.kernels import (_build, cumsum0,
+                                                  fsk_framing, fsk_seq,
+                                                  psk_seq)
 
 HOST = Path(__file__).resolve().parent / "host_cuda"
-NAMES = ("fsk_seq", "fsk_framing", "fsk_stage_d", "psk_seq")
+NAMES = ("fsk_seq", "fsk_framing", "fsk_stage_d", "psk_seq", "cumsum0")
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?(?:\[[^\]]+\])?)\s*<<<(.*?)>>>\s*\(",
                     re.S)
 SHARED = re.compile(r"extern __shared__ ([\w ]+?)\s+(\w+)\[\];")
@@ -244,33 +245,107 @@ def _flat(out):
     return [out]
 
 
-def test_k6_shared_front_end(on_host):
-    """K6 through the split front end of seq_front.cuh: bits, rings and R
-    exactly, floats within ATOL, state carried over a ds_phase prefix."""
-    params = psk_model.params_from_config(psk_model.PSKConfig())
-    B, D = 33, params.ds_samples_per_bit
+K6_CASES = {
+    # name: (config overrides, B, pieces, emit_rsum, first ds_phase)
+    "B33": ({}, 33, (63, 40), True, 0),
+    "B1": ({}, 1, (63, 40), True, 0),
+    "T0_1_17": ({}, 33, (1, 17, 0, 63), True, 0),
+    "ds_phase1": ({}, 9, (40, 33), True, 1),
+    # D = 5: the delayed sample lies in the same G tile
+    "D5_below_a_G_tile": ({"baud_rate": 4800}, 33, (70, 3, 40), True, 0),
+    "D480_no_R": ({"baud_rate": 50}, 9, (60, 41), False, 0),
+    # D = 960 > SHARED_RING_MAX_D: the rings in the ring_out plane, with
+    # lanes past B that must not touch lane B - 1's ring
+    "D960_device_rings": ({"baud_rate": 50, "sample_rate": 96000}, 3,
+                          (60, 41), False, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_shared_front_end(on_host, case):
+    """K6 (seq_pipe.cuh's warps 0 and 1, then its ring and atan2f warps):
+    bits, rings and R exactly, floats within ATOL, state carried over the
+    pieces (a ds_phase prefix after an odd piece), at partial blocks,
+    empty and one-sample pieces, a delay shorter than a G tile, and both
+    ring placements."""
+    overrides, B, pieces, emit_rsum, ds_phase = K6_CASES[case]
+    params = psk_model.params_from_config(psk_model.PSKConfig(**overrides))
+    D = params.ds_samples_per_bit
+    if case == "D960_device_rings":
+        assert D > psk_seq.SHARED_RING_MAX_D
     sig, rng = _signal(params, B, seed=6, modulate=psk)
     state = psk.init_state(params, B, "cpu")
-    front, acc = state.front, state.ds_acc
+    front = state.front
+    acc = torch.from_numpy(rng.standard_normal((2, B)).astype(np.float32))
     ring = torch.from_numpy(rng.standard_normal((2 * D, B)).astype(
         np.float32))
-    ds_phase, start = 0, 1000
-    for T in (63, 40):
+    # inside the messages, away from the lead silence
+    start = min(1000 if D <= 20 else 5000, sig.shape[1] - sum(pieces))
+    for T in pieces:
         x = sig[:, start:start + T].t().contiguous()
+        assert x.shape[0] == T
         ring0 = torch.from_numpy(
             (rng.random((D, B)) < 0.5).astype(np.float32)).to(torch.bfloat16)
-        args = (params, ds_phase, front, acc, ring, ring0, x)
-        k = psk_seq.seq(*args)
-        p = psk_seq.seq_plain(*args)
+        args = (params, ds_phase, front, acc, ring,
+                ring0 if emit_rsum else None, x)
+        k = psk_seq.seq(*args, emit_rsum=emit_rsum)
+        p = psk_seq.seq_plain(*args, emit_rsum=emit_rsum)
+        label = f"T={T} ds_phase={ds_phase}"
         for name, got, want in zip(("front", "ds_acc", "ring", "bits",
                                     "amps", "softs", "rsum"), k, p):
             if name in ("ring", "bits", "rsum"):
-                assert torch.equal(got, want), name
+                assert (got is None and want is None) or \
+                    torch.equal(got, want), f"{label} {name}"
             else:
-                _close(name, got, want)
+                _close(f"{label} {name}", got, want)
         front, acc, ring = k[0], k[1], k[2]
         ds_phase = (ds_phase + T) % params.downsample_ratio
         start += T
+
+
+def _np_csum0(x):
+    out = np.zeros((x.shape[0] + 1, x.shape[1]), np.float32)
+    np.cumsum(x, axis=0, out=out[1:])
+    return out
+
+
+K5_CASES = {
+    # name: (ring rows, B, window start, window rows, base offset in floats)
+    "n0": (0, 5, 0, 0, 0),
+    "n1_B1": (1, 1, 0, 1, 0),
+    "n37_B3": (37, 3, 0, 37, 0),
+    # 300 rows: two whole 128-row stages and a partial one; B = 33: a
+    # partial block, rows misaligned for 16-byte copies
+    "n300_B33": (300, 33, 0, 300, 0),
+    "long_B3": (2000, 3, 0, 2000, 0),
+    "n37_B4097": (37, 4097, 0, 37, 0),
+    # a base pointer that is only 4-byte aligned
+    "unaligned_base_B64": (200, 64, 0, 200, 1),
+    # a window that wraps past the ring's last row, at an odd B
+    "ring_wrap_B7": (600, 7, 500, 300, 0),
+    "ring_wrap_B32": (640, 32, 384, 512, 0),
+    "ring_view_B33": (700, 33, 123, 400, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_exact(on_host, case):
+    """K5 (producer warp copying stages ahead, consumer warp adding in row
+    order) equals its plain version and np.cumsum of the window exactly,
+    at empty, one-row, partial-stage and long windows, partial blocks,
+    misaligned rows and bases, and windows that wrap the ring."""
+    rows, B, start, n, offset = K5_CASES[case]
+    rng = np.random.default_rng(rows + B)
+    flat = rng.standard_normal(offset + rows * B).astype(np.float32)
+    ring = torch.from_numpy(flat)[offset:].view(rows, B)
+    assert ring.data_ptr() % 16 == 4 * offset % 16
+    got = cumsum0.csum0(ring, start, n)
+    want = cumsum0.csum0_plain(ring, start, n)
+    assert got.shape == (n + 1, B)
+    assert torch.equal(got, want)
+    window = np.concatenate([flat[offset:].reshape(rows, B)[start:],
+                             flat[offset:].reshape(rows, B)])[:n]
+    np.testing.assert_array_equal(got.numpy(), _np_csum0(window))
 
 
 def test_host_warp_pipe_mirrors_the_card_header():

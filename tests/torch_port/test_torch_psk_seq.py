@@ -255,17 +255,21 @@ def test_plain_chunking_is_exact(baud, sample_rate):
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """A library is keyed by its source and every csrc header it
-    includes: editing the front-end header K1 and K6 share rebuilds both,
-    and only them; editing the pipelines' hand-over header rebuilds K1
-    and K2, and only them."""
+    includes, directly or through another header: editing the front-end
+    header or the warp pipeline K1 and K6 share rebuilds both, and only
+    them; editing the hand-over header rebuilds K1, K6, K2 and K5, and
+    only them."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
-    assert [h.name for h in _build.headers("psk_seq")] == ["seq_front.cuh"]
-    assert [h.name for h in _build.headers("fsk_seq")] == ["seq_front.cuh",
-                                                           "warp_pipe.cuh"]
+    pipe = ["seq_front.cuh", "seq_pipe.cuh", "warp_pipe.cuh"]
+    assert [h.name for h in _build.headers("psk_seq")] == pipe
+    assert [h.name for h in _build.headers("fsk_seq")] == pipe
+    assert [h.name for h in _build.headers("cumsum0")] == ["warp_pipe.cuh"]
     for name, rebuilt in (("seq_front.cuh", {"fsk_seq", "psk_seq"}),
-                          ("warp_pipe.cuh", {"fsk_seq", "fsk_framing"})):
+                          ("seq_pipe.cuh", {"fsk_seq", "psk_seq"}),
+                          ("warp_pipe.cuh", {"fsk_seq", "psk_seq",
+                                             "fsk_framing", "cumsum0"})):
         before = {n: _build.library_path(n) for n in _build.names()}
         header = csrc / name
         header.write_bytes(header.read_bytes() + b"\n")

@@ -22,9 +22,19 @@ compared by.  WHAT is one of:
   configuration (T = 4800), K1 in csum mode on the soft decode's 16-byte
   frames at 8 dB (T = 16,720, B = 4096), K7 (K1 without R) at 50 baud
   (ds = 480, T = 4800, B = 2048), K6 at ``PSKConfig()`` (D = 20,
-  T = 4800, B = 4096), each five times over 20 launches (5 for the csum
-  mode) between two CUDA events, and the hard ``demod_chunk`` at
-  B = 4096 over 25 chunks.  It prints a hash of each one's outputs.
+  B = 4096, with R) on two inputs: the second 0.1 s chunk of 4096
+  distinct 13-byte messages after the first (the turns' input; the
+  messages end there, so T = 2080), and the first chunk after 28 chunk
+  steps cycling through the messages' chunks (T = 4800, the input
+  ``chip_smoke.py`` phase 11 times K6 on), each five
+  times over 20 launches (5 for the csum mode) between two CUDA events,
+  and the hard ``demod_chunk`` at B = 4096 over 25 chunks.  It prints a
+  hash of each one's outputs.
+* ``cumsum`` — K5 at ``chip_smoke.CSUM_SHAPES`` (the blind receiver's
+  header and body windows, B = 4096) on normal random planes, five times
+  over 20 launches between two CUDA events, beside ``torch.cumsum`` of
+  the same plane and K5's byte bound (one read of x, one write of the
+  output at 3.35 TB/s), with a hash of K5's output.
 * ``soft_decode`` — the farm soft-FEC decode of 2048 and 4096 distinct
   16-byte payloads at 8 dB, as ``chip_smoke.py`` phase 8 makes them,
   decoded exactly three times over as ten pipelined
@@ -127,6 +137,13 @@ pstate, _ = psk.demod_chunk(pp, 0, psk.init_state(pp, B, dev),
                             psig[:, :cs.CHUNK])
 k6 = (pp, *cs._psk_args(pstate, 0, psig[:, cs.CHUNK:2 * cs.CHUNK]
                         .t().contiguous(), True))
+# phase 11's input: the first chunk after 28 steps cycling the chunks
+pchunks = [psig[:, i * cs.CHUNK:(i + 1) * cs.CHUNK]
+           for i in range(psig.shape[1] // cs.CHUNK)]
+pstate = psk.init_state(pp, B, dev)
+for i in range(28):
+    pstate, _ = psk.demod_chunk(pp, 0, pstate, pchunks[i % len(pchunks)])
+k6_cycled = (pp, *cs._psk_args(pstate, 0, pchunks[0].t().contiguous(), True))
 chunks = [sig[:, i * cs.CHUNK:(i + 1) * cs.CHUNK]
           for i in range(sig.shape[1] // cs.CHUNK)]
 run = [fsk_demod.init_state(params, B, dev), 0]
@@ -144,7 +161,9 @@ cases = (
      lambda: fsk_seq.seq(*csum, **cs.CSUM_FLAGS), 5),
     ("K7 ds=480 T=4800 B=2048",
      lambda: fsk_seq.seq(*k7, emit_rsum=False), 20),
-    ("K6 D=20 T=4800 B=4096", lambda: psk_seq.seq(*k6), 20),
+    (f"K6 D=20 T={k6[-1].shape[0]} B=4096", lambda: psk_seq.seq(*k6), 20),
+    (f"K6 D=20 T={k6_cycled[-1].shape[0]} B=4096, phase 11's input",
+     lambda: psk_seq.seq(*k6_cycled), 20),
     ("demod_chunk hard B=4096",
      lambda: fsk_demod.demod_chunk(params, 0, state, chunks[1]), 0),
 )
@@ -159,6 +178,29 @@ for name, fn, reps in cases:
     print(f"turn {sys.argv[2]} {name}: "
           f"{', '.join(f'{m:.4f}' for m in ms)} ms per call; outputs "
           f"sha256 {digest_s}", flush=True)
+""",
+    "cumsum": r"""
+from webaudio_modem_tpu_torch.ops.kernels import cumsum0
+gen = torch.Generator(device=dev)
+gen.manual_seed(14)
+for n, B in cs.CSUM_SHAPES:
+    x = torch.randn((n, B), generator=gen, device=dev)
+    out = cumsum0.csum0(x)
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+    del out
+    for _ in range(3):
+        cumsum0.csum0(x)
+    ms = [cs._cuda_ms(lambda: cumsum0.csum0(x), 20) for _ in range(5)]
+    lib = cs._cuda_ms(lambda: torch.cumsum(x, 0), 20)
+    n_bytes = cs._csum_bound(n, B)[0]
+    bound = n_bytes / cs.HBM_BYTES_PER_S * 1e3
+    print(f"turn {sys.argv[2]} K5 [{n}, {B}]: "
+          f"{', '.join(f'{m:.4f}' for m in ms)} ms per call "
+          f"(best {n_bytes / min(ms) / 1e6:.1f} GB/s, "
+          f"{100 * bound / min(ms):.1f} % of the byte bound "
+          f"{bound:.4f} ms); torch.cumsum {lib:.4f} ms; outputs sha256 "
+          f"{digest}", flush=True)
+    del x
 """,
     "soft_decode": r"""
 from webaudio_modem_tpu_torch.ops import soft_fsk

@@ -50,6 +50,7 @@
 //           own column) and runs the AGC, writing y to the Y ring;
 //   warp 1  band-pass, NCO, mix, I/Q low-pass and the group sums, writing
 //           (sum_i, sum_q) per group to the G ring;
+//           (warps 0 and 1 are seq_pipe.cuh's, shared with K6)
 //   warps 2-3  the feed-forward part of each decision (average, atan2f,
 //           amplitude, which no recurrence links), half of each G tile
 //           each: the phase goes back into the slot, the amplitude to
@@ -75,40 +76,17 @@
 
 #include <cuda_bf16.h>
 
-#include "seq_front.cuh"
-#include "warp_pipe.cuh"
+#include "seq_pipe.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;            // channels per block
+using namespace wam::pipe;
+
 constexpr int kWarps = 5;
 constexpr int kThreads = kWarps * kLanes;
-constexpr int kTile = 32;             // samples per x / y tile
-constexpr int kAhead = 2;             // x tiles copied ahead of the AGC
-constexpr int kXSlots = kAhead + 1;
-constexpr int kYSlots = 3;
-constexpr int kGTile = 16;            // groups per G tile
-constexpr int kGSlots = 3;
 constexpr int kFront = 20;   // the shared 15 rows, last_phase, post (4)
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 2.0f * kPi;
-
-// named barriers: 1..15
-__device__ __forceinline__ int y_full(int s) { return 1 + s; }
-__device__ __forceinline__ int y_empty(int s) { return 1 + kYSlots + s; }
-__device__ __forceinline__ int g_full(int s) { return 1 + 2 * kYSlots + s; }
-__device__ __forceinline__ int g_mid(int s) {
-  return 1 + 2 * kYSlots + kGSlots + s;
-}
-__device__ __forceinline__ int g_empty(int s) {
-  return 1 + 2 * kYSlots + 2 * kGSlots + s;
-}
-static_assert(2 * kYSlots + 3 * kGSlots <= 15, "named barrier ids");
-
-constexpr int kXFloats = kXSlots * kTile * kLanes;
-constexpr int kYFloats = kYSlots * kTile * kLanes;
-constexpr int kGFloats = kGSlots * 2 * kGTile * kLanes;
-constexpr size_t kRingOffset = (kXFloats + kYFloats + kGFloats) * 4;
 
 using wam::bar_arrive;
 using wam::bar_sync;
@@ -125,98 +103,25 @@ fsk_seq_kernel(const float* __restrict__ x, int T, int B,
                float* __restrict__ softs, __nv_bfloat16* __restrict__ rsum,
                const FskSeqCoef c) {
   extern __shared__ unsigned char smem[];
-  float* const xr = reinterpret_cast<float*>(smem);   // [kXSlots][kTile][32]
-  float* const yr = xr + kXFloats;                     // [kYSlots][kTile][32]
-  float* const gr = yr + kYFloats;     // [kGSlots][2][kGTile][32]: I, Q
-  unsigned char* const ring = smem + kRingOffset;      // [ds][32]
+  const Rings rings(smem);
+  float* const gr = rings.gr;
+  unsigned char* const ring = smem + kTileBytes;      // [ds][32]
   const int warp = threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
   const int b = blockIdx.x * kLanes + lane;
   const bool store = b < B;
   const int bl = store ? b : B - 1;     // the column this lane reads
   const size_t Bs = static_cast<size_t>(B);
-  const int n_tiles = (T + kTile - 1) / kTile;
   const int n = (ds_phase + T) / c.ratio;          // decisions
   const int n_gtiles = (n + kGTile - 1) / kGTile;
 
   if (warp == 0) {
-    // copies kAhead tiles ahead, and the AGC
-    wam::Front fr;
-    fr.g = front_in[bl];
-    auto copy_tile = [&](int k) {
-      if (k < n_tiles) {
-        float* dst = xr + (k % kXSlots) * kTile * kLanes + lane;
-        const float* src = x + static_cast<size_t>(k) * kTile * Bs + bl;
-        const int m = min(kTile, T - k * kTile);
-        for (int u = 0; u < m; ++u)
-          wam::cp_async4(dst + u * kLanes, src + u * Bs);
-      }
-      wam::cp_async_commit();
-    };
-    for (int k = 0; k < kAhead; ++k) copy_tile(k);
-    for (int k = 0; k < n_tiles; ++k) {
-      copy_tile(k + kAhead);
-      wam::cp_async_wait<kAhead>();
-      const int s = k % kYSlots;
-      if (k >= kYSlots) bar_sync(y_empty(s), 2 * kLanes);
-      const float* xs = xr + (k % kXSlots) * kTile * kLanes + lane;
-      float* ys = yr + s * kTile * kLanes + lane;
-      const int m = min(kTile, T - k * kTile);
-#pragma unroll 4
-      for (int u = 0; u < m; ++u) ys[u * kLanes] = fr.agc(c, xs[u * kLanes]);
-      bar_arrive(y_full(s), 2 * kLanes);
-    }
-    if (store) front_out[b] = fr.g;
+    copy_agc(rings, x, T, Bs, lane, b, bl, store, front_in, front_out, c);
   } else if (warp == 1) {
-    // band-pass, NCO, mix, I/Q low-pass, group sums
-    wam::Front fr;
-    fr.load(front_in, Bs, bl);
-    float acc_i = ds_phase > 0 ? acc_in[bl] : 0.0f;
-    float acc_q = ds_phase > 0 ? acc_in[Bs + bl] : 0.0f;
-    int phase = ds_phase;
-    int gpos = 0, gt = 0;   // groups in the open G tile; G tiles handed on
-    for (int k = 0; k < n_tiles; ++k) {
-      const int s = k % kYSlots;
-      bar_sync(y_full(s), 2 * kLanes);
-      const float* ys = yr + s * kTile * kLanes + lane;
-      const int t0 = k * kTile;
-      const int m = min(kTile, T - t0);
-      for (int u = 0; u < m; ++u) {
-        fr.filter_mix(c, ys[u * kLanes]);
-        const float fi = fr.iy1, fq = fr.qy1;   // the I/Q low-pass outputs
-        if (phase == 0 && t0 + u + c.ratio <= T) {  // a whole group
-          acc_i = fi;
-          acc_q = fq;
-        } else if (phase == 0) {                     // the leftover
-          acc_i = 0.0f + fi;
-          acc_q = 0.0f + fq;
-        } else {
-          acc_i = acc_i + fi;
-          acc_q = acc_q + fq;
-        }
-        if (++phase < c.ratio) continue;
-        phase = 0;
-        const int gs = gt % kGSlots;
-        if (gpos == 0 && gt >= kGSlots) bar_sync(g_empty(gs), 2 * kLanes);
-        float* g = gr + gs * 2 * kGTile * kLanes + gpos * kLanes + lane;
-        g[0] = acc_i;
-        g[kGTile * kLanes] = acc_q;
-        if (++gpos == kGTile) {
-          bar_arrive(g_full(gs), 3 * kLanes);
-          gpos = 0;
-          ++gt;
-        }
-      }
-      if (k + kYSlots < n_tiles) bar_arrive(y_empty(s), 2 * kLanes);
-    }
-    if (gpos > 0) bar_arrive(g_full(gt % kGSlots), 3 * kLanes);
-    if (store) {
-      fr.store(front_out, Bs, b, 1);
-      // pending sums only while a group is open (the reference returns 0
-      // when the chunk ends on a group boundary)
-      acc_out[b] = phase != 0 ? acc_i : 0.0f;
-      acc_out[Bs + b] = phase != 0 ? acc_q : 0.0f;
-    }
+    // G slots: FULL to warps 2-3, EMPTY from warp 4
+    front_sums<3 * kLanes, 2 * kLanes>(rings, T, Bs, lane, b, bl, store,
+                                       front_in, front_out, acc_in, acc_out,
+                                       ds_phase, c);
   } else if (warp < 4) {
     // the decisions' feed-forward part, half of every G tile each
     const int lo = (warp - 2) * (kGTile / 2);
@@ -329,7 +234,7 @@ extern "C" int wam_fsk_seq(const float* x, int T, int B,
   // 36 KB of rings and 32 B per bit-ring row: 44 KB at ds = 256; beyond
   // 48 KB (R at ds > 372) the kernel opts in
   const size_t smem =
-      kRingOffset + (emit_rsum ? static_cast<size_t>(c.ds) * kLanes : 0);
+      kTileBytes + (emit_rsum ? static_cast<size_t>(c.ds) * kLanes : 0);
   const int m = (bits != nullptr ? 1 : 0) | (amps != nullptr ? 2 : 0) |
                 (emit_csum ? 4 : 0) | (emit_rsum ? 8 : 0);
   if (smem > 48 * 1024)

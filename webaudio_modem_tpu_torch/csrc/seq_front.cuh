@@ -1,6 +1,7 @@
 // The demodulators' shared full-rate front end, used by K1 (fsk_seq.cu)
-// and K6 (psk_seq.cu): AGC, band-pass pre-filter, NCO mix with a
-// first-order renormalized rotation, I/Q low-pass biquads — the
+// and K6 (psk_seq.cu) through the warps of seq_pipe.cuh: AGC, band-pass
+// pre-filter, NCO mix with a first-order renormalized rotation, I/Q
+// low-pass biquads — the
 // reference's ops/fsk_demod.py `_full_rate_step`.  Its 15 state floats
 // are rows 0..14 of both kernels' front planes, in this order: AGC gain,
 // pre (x1, x2, y1, y2), NCO (cos, sin), iq_i (x1, x2, y1, y2), iq_q (x1,
@@ -110,11 +111,6 @@ struct Front {
     ix2 = ix1; ix1 = i_r; iy2 = iy1; iy1 = fi;
     const float fq = biquad(c.iq, q_r, qx1, qx2, qy1, qy2);
     qx2 = qx1; qx1 = q_r; qy2 = qy1; qy1 = fq;
-  }
-
-  // One full-rate sample (K6 runs the two parts in one thread).
-  __device__ __forceinline__ void step(const FskSeqCoef& c, float xt) {
-    filter_mix(c, agc(c, xt));
   }
 };
 

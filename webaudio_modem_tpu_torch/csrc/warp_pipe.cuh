@@ -1,6 +1,7 @@
-// Hand-over primitives of the warp-specialised kernels (K1, fsk_seq.cu;
-// K2, fsk_framing.cu): named barriers between the warps of one block, and
-// 4-byte asynchronous copies from device memory into shared memory.
+// Hand-over primitives of the warp-specialised kernels (K1, fsk_seq.cu,
+// and K6, psk_seq.cu, through seq_pipe.cuh; K2, fsk_framing.cu; K5,
+// cumsum0.cu): named barriers between the warps of one block, and 4- and
+// 16-byte asynchronous copies from device memory into shared memory.
 //
 // A ring slot passes from a producer warp to a consumer warp through two
 // named barriers over both warps' 64 threads: the producer fills the slot
@@ -37,6 +38,16 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+// copy the 16 bytes at `src` (16-byte aligned, device memory) to `dst`
+// (shared memory, 16-byte aligned), asynchronously; cached in L2 only
+// (.cg: data read once gains nothing from L1)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
                : "memory");
 }
 

@@ -4,10 +4,11 @@ it with ctypes.
 The libraries have a plain C interface (no PyTorch headers), so a build
 takes seconds.  Each source is compiled for ``sm_90a`` at first use into
 ``build/kernels/`` beside the package, under a name keyed by a hash of
-that source, the ``csrc/`` headers it includes (``seq_front.cuh``, the
-front end K1 and K6 share; ``framing_step.cuh``, the step K2 and K8
-share) and the flags, and reused while none of them
-changes.  ``build`` starts one nvcc per missing library, all at once, and
+that source, the ``csrc/`` headers it includes, directly or through
+another header (``seq_front.cuh`` and ``seq_pipe.cuh``, the front end
+and the first two pipeline warps K1 and K6 share; ``framing_step.cuh``,
+the step K2 and K8 share; ``warp_pipe.cuh``, the hand-over primitives),
+and the flags, and reused while none of them changes.  ``build`` starts one nvcc per missing library, all at once, and
 waits for them.
 
 Floating-point flags: no ``--use_fast_math`` (``atan2f``, ``sqrtf`` and

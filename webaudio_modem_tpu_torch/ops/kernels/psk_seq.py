@@ -34,6 +34,11 @@ from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops.kernels import _build, fsk_seq
 
 N_FRONT = fsk_seq.N_SHARED
+# the largest D whose I/Q rings K6 keeps in shared memory without R,
+# beside its pipeline's 36 KB of tiles (679 with R's bit ring); beyond
+# it the rings live in the ring_out plane in device memory
+# (``wam_psk_seq`` in csrc/psk_seq.cu chooses from D alone)
+SHARED_RING_MAX_D = 764
 # kernel launches through ``seq`` (CPU calls run the plain version and
 # are not counted)
 launches = 0
@@ -116,7 +121,8 @@ def seq(params: FSKParams, ds_phase: int, front: torch.Tensor,
     None), the four planes [n, B] with n = (ds_phase + T) // ratio.
     rsum[i] is the sum of the D bits ending at decision i; it is exact
     for D <= 256.  The kernel keeps the I/Q rings in shared memory where
-    they fit (D <= 908), in ``ring'`` in device memory beyond.
+    they fit beside its pipeline's tiles (D <= 764 without R, 679 with
+    it: ``SHARED_RING_MAX_D``), in ``ring'`` in device memory beyond.
     """
     global launches
     operands = (front, ds_acc, ring, x) + ((ring0,) if emit_rsum else ())

@@ -343,22 +343,17 @@ class BlindSoftBatchReceiver:
         rx.refract.copy_(refract)
         return torch.stack([emit_a, pos1, closes.to(torch.int32), pos_b])
 
-    def _window(self, slot0: int, k: int) -> torch.Tensor:
-        """The soft planes of quanta slot0 .. slot0 + k - 1 from the ring,
-        [k * n_ds, B]: a view where the slots are consecutive, one
-        concatenation where the window wraps (k < n_slots, so at most
-        once)."""
-        n_ds, n_slots = self._n_ds, self._n_slots
-        s = slot0 % n_slots
-        ring = self._rx.ring
-        if s + k <= n_slots:
-            return ring[s * n_ds:(s + k) * n_ds]
-        return torch.cat([ring[s * n_ds:], ring[:(s + k - n_slots) * n_ds]])
+    def _window(self, slot0: int, k: int):
+        """The soft planes of quanta slot0 .. slot0 + k - 1 of the ring as
+        K5 reads them in place: (ring, first row, rows).  The window
+        wraps past the ring's last row at most once (k < n_slots)."""
+        n_ds = self._n_ds
+        return self._rx.ring, (slot0 % self._n_slots) * n_ds, k * n_ds
 
     def _header_prog(self, slot0: int, t_peak_rel: torch.Tensor,
                      active: torch.Tensor) -> torch.Tensor:
         """Header decode of one group: int64 [3, B] (found, ln, st)."""
-        csum = soft_fsk._csum0(self._window(slot0, self._K_h))
+        csum = soft_fsk._csum0(*self._window(slot0, self._K_h))
         starts, headers, valid = soft_fsk._candidate_headers(
             self._params, csum[1:], t_peak_rel, active, 0, self._top_k)
         found, ln, st = soft_fsk._select_candidate(
@@ -369,7 +364,7 @@ class BlindSoftBatchReceiver:
                    active: torch.Tensor) -> torch.Tensor:
         """Body decode of one (window, length) group: uint8 [B, ln + 1]
         (payload bytes + CRC-ok flag)."""
-        csum = soft_fsk._csum0(self._window(slot0, self._K_b(ln)))
+        csum = soft_fsk._csum0(*self._window(slot0, self._K_b(ln)))
         b_starts = torch.where(active, b_start_rel, 0)
         bodies = soft_fsk._batch_body_stage(self._params, csum[1:], b_starts,
                                             ln)

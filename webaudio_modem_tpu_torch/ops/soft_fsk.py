@@ -205,13 +205,13 @@ def _body_window(params: FSKParams, n_ds: int, b_starts: torch.Tensor,
                                 polarity=params.polarity, virt0=True)
 
 
-def _csum0(softs: torch.Tensor) -> torch.Tensor:
-    """Zero-prefixed f32 prefix sum [n + 1, B] of a soft plane [n, B], in
-    strict row order: K5 (``ops/kernels/cumsum0.py``) on the card, its
-    plain version on the CPU.  ``_csum0(x)[1:]`` is a contiguous view that
-    equals K1's inclusive cumsum, the form the header and body helpers
-    read."""
-    return cumsum0.csum0(softs)
+def _csum0(softs: torch.Tensor, start: int = 0, n=None) -> torch.Tensor:
+    """Zero-prefixed f32 prefix sum [n + 1, B] of a soft plane [n, B] (or
+    of ``n`` rows of a ring from row ``start``, wrapping), in strict row
+    order: K5 (``ops/kernels/cumsum0.py``) on the card, its plain version
+    on the CPU.  ``_csum0(x)[1:]`` is a contiguous view that equals K1's
+    inclusive cumsum, the form the header and body helpers read."""
+    return cumsum0.csum0(softs, start, n)
 
 
 def _header_llrs(params: FSKParams, csum: torch.Tensor,
