@@ -50,15 +50,23 @@ Phases:
      and amp streams dropped and the softs' inclusive running sum (also
      held against a strict f32 loop over the full run's softs), K4 at
      the header and body windows and at the extreme bases, K3 at the
-     header, body and a payload-100 trellis; K7 (K1 without R) at
-     50 baud (ds = 480), timed beside its plain version, and 50-baud
-     streams decoding exactly;
+     header, body and a payload-100 trellis (read in place as soft
+     views); K3 and K4 at their edges (K3 at each width and record
+     placement its wrapper picks, reached by L and T: T = 1, 15, 16,
+     17, 38, 40 and each width's shared-memory switch and one step
+     more, L from the first and to the last lane count of each width,
+     partial blocks, both soft-view layouts, near-ties; K4: stride 1, ds
+     and one not dividing ds, virt0, pad_lo, bases at and past the
+     plane's edges, n_wsum <= 0, B = 1, 5, 129);
+     K7 (K1 without R) at 50 baud (ds = 480), timed beside its plain
+     version, and 50-baud streams decoding exactly;
   7. the soft main path: 2048 distinct random payloads at 8 dB decode
      exactly with 1 / 2 / 2 launches of K1 / K4 / K3, and an erased
      channel decodes to None;
   8. soft timings at B=2048 and 4096 (per decode, realtime channels,
      each kernel beside its plain version and, for K4, torch.gather over
-     window sums made beforehand, which is not K4's function),
+     window sums made beforehand, which is not K4's function; K3's and
+     K4's device time in a CUDA graph beside it, ``graph_ms``),
      peak device memory, and a torch.profiler breakdown;
   9. K6 against its plain version on the card, every output exactly, at
      B=2048: noisy DBPSK chunks of distinct messages with state carried
@@ -198,6 +206,55 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed between two CUDA events, so the wrappers' host work
+    leaves no gaps between the kernels (``_cuda_ms`` times what a caller
+    enqueuing them one by one sees)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _cuda_ms(graph.replay, 3) / reps
+    graph.reset()       # its private memory pool back to the allocator
+    return ms
+
+
+def _resident(after):
+    """Print the device memory still allocated after a phase, before and
+    after ``gc.collect()``, and the largest CUDA tensors alive then."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 20
+    gc.collect()
+    sizes = {}
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+        except Exception:      # objects that fail isinstance (proxies)
+            continue
+        key = (tuple(obj.shape), str(obj.dtype).replace("torch.", ""))
+        n, mib = sizes.get(key, (0, 0.0))
+        sizes[key] = (n + 1, mib + obj.numel() * obj.element_size() / 2 ** 20)
+    top = sorted(sizes.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"  device memory held after {after}: {held:.1f} MiB allocated, "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} after "
+          "gc.collect(); largest live CUDA tensors: " + (", ".join(
+              f"{n} x {list(shape)} {dtype} ({mib:.1f} MiB)"
+              for (shape, dtype), (n, mib) in top) or "none"))
 
 
 def _nbytes(*tensors):
@@ -604,7 +661,8 @@ def _soft_batch(params, rng, B, device):
 def _soft_planes(params, noisy):
     """The soft decode's intermediate planes, through the kernels, as
     ``_decode_frames_fused`` computes them: K1's csum and R, the header
-    candidates' LLRs and trellis inputs, the body LLRs and theirs."""
+    candidates' LLRs and the body LLRs as the soft views [L, T, 2] that
+    K3 reads in place."""
     import torch
 
     from webaudio_modem_tpu_torch.ops import fec, fsk_demod, soft_fsk
@@ -622,23 +680,22 @@ def _soft_planes(params, noisy):
     starts, h_llr, valid = soft_fsk._header_llrs(params, csum, t_peak,
                                                  peak_ok, body_bits_n)
     L = h_llr.shape[0] * h_llr.shape[1]
-    h_a, h_d = fec.branch_sums(h_llr.reshape(L, -1, 2))
-    headers = fec._viterbi_core(h_llr.reshape(L, -1, 2),
-                                8 * soft_fsk.HEADER_PLAIN).reshape(
+    h_soft = h_llr.reshape(L, -1, 2)
+    headers = fec._viterbi_core(h_soft, 8 * soft_fsk.HEADER_PLAIN).reshape(
         B, -1, 8 * soft_fsk.HEADER_PLAIN)
     found, _, st = soft_fsk._select_candidate(headers, starts, valid,
                                               payload_len=SOFT_PAYLOAD)
     b_starts = torch.where(found, st + soft_fsk.HEADER_CODED_BITS * ds,
                            torch.zeros_like(st))
     b_llr = soft_fsk._body_llrs(params, csum, b_starts, SOFT_PAYLOAD)
-    b_a, b_d = fec.branch_sums(b_llr.t().reshape(B, -1, 2))
+    b_soft = b_llr.t().reshape(B, -1, 2)          # a view of [T * 2, B]
     n_ds = csum.shape[0]
     align_calls = {
         "header": soft_fsk._header_window(params, n_ds, t_peak),
         "body": soft_fsk._body_window(params, n_ds, b_starts, SOFT_PAYLOAD)}
     return dict(seq_args=seq_args, csum=csum, rsum=rsum,
-                header=(h_a, h_d, 8 * soft_fsk.HEADER_PLAIN),
-                body=(b_a, b_d, 8 * (SOFT_PAYLOAD + 2)),
+                header=(h_soft, 8 * soft_fsk.HEADER_PLAIN),
+                body=(b_soft, 8 * (SOFT_PAYLOAD + 2)),
                 align_calls=align_calls)
 
 
@@ -646,8 +703,9 @@ CSUM_FLAGS = dict(emit_bits=False, emit_amps=False, emit_csum=True)
 
 
 def _long_trellis(rng, L, device):
-    """Trellis inputs of a payload-100 body: random coded streams as +-1
-    correlations plus Gaussian noise (sigma 0.5), T = 822 steps."""
+    """The soft view [L, 822, 2] of payload-100 bodies: random coded
+    streams as +-1 correlations plus Gaussian noise (sigma 0.5), with
+    n_bits and the true bits."""
     import numpy as np
     import torch
 
@@ -658,8 +716,7 @@ def _long_trellis(rng, L, device):
     coded = fec.conv_encode_bits_batch(bits).astype(np.float32) * 2 - 1
     coded += 0.5 * rng.standard_normal(coded.shape, dtype=np.float32)
     soft = torch.from_numpy(coded).to(device).reshape(L, -1, 2)
-    a, d = fec.branch_sums(soft)
-    return a, d, n_bits, torch.from_numpy(bits).to(device)
+    return soft, n_bits, torch.from_numpy(bits).to(device)
 
 
 def _equal_or_raise(what, got, want):
@@ -697,6 +754,167 @@ def _align_bytes(csum, base, n_out, ds, stride, pad_lo, virt0, **_):
     return int(reads.sum()) * 4 + _nbytes(base) + n_out * base.numel() * 4
 
 
+# K3's edge cases: (name, T, lanes past the first that ``pick`` gives the
+# width, from the trellises a block, soft-view layout, near-ties); T
+# "switch" is the longest trellis whose records fit a block's shared
+# memory at that width, "switch+1" one step more (device memory)
+K3_EDGE_CASES = (
+    ("T1_L1", 1, lambda tb: 0, "header", False),
+    ("T15_L3", 15, lambda tb: 2, "body", False),
+    ("T16_odd_L", 16, lambda tb: 5, "header", False),
+    ("T17_partial_block", 17, lambda tb: tb + 3, "body", False),
+    ("T38_header", 38, lambda tb: tb - 1, "header", False),
+    ("T40_ties", 40, lambda tb: 7, "body", True),
+    ("shared_switch", "switch", lambda tb: 3, "body", False),
+    ("past_the_switch", "switch+1", lambda tb: 3, "header", False),
+)
+
+
+def _k3_edge(case, threads):
+    """(L, T, layout, ties) of K3 edge case ``case`` at a width that
+    ``viterbi.pick`` chooses: L counts from the fewest lanes for which it
+    picks ``threads`` threads a trellis at that T."""
+    from webaudio_modem_tpu_torch.ops.kernels import viterbi
+
+    _, T, lanes, layout, ties = next(c for c in K3_EDGE_CASES
+                                     if c[0] == case)
+    if isinstance(T, str):
+        T = viterbi.shared_max_steps(threads) + (T == "switch+1")
+    first = next(n for n in range(1, 1 << 17)
+                 if viterbi.pick(n, T)[0] == threads)
+    return first + lanes(viterbi.THREADS // threads), T, layout, ties
+
+
+def _k3_soft(rng, L, T, layout, ties, device):
+    """A soft view [L, T, 2]: ``header`` a contiguous plane, ``body`` the
+    transposed view of a time-major [2T, L] plane, as the decode hands
+    K3 its two calls; coded +-1 pairs plus noise (sigma 0.8), or with
+    ``ties`` correlations on a coarse grid whose path metrics tie
+    exactly."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fec
+
+    if ties:
+        x = rng.integers(-1, 2, (L, T, 2)).astype(np.float32) * 0.5
+    else:
+        bits = rng.integers(0, 2, (L, max(T - fec.K + 1, 0)), dtype=np.uint8)
+        coded = (fec.conv_encode_bits_batch(bits).astype(np.float32) * 2 - 1
+                 if T >= fec.K else np.ones((L, 2 * T), np.float32))
+        x = (coded.reshape(L, T, 2) + 0.8 * rng.standard_normal(
+            (L, T, 2))).astype(np.float32)
+    if layout == "header":
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    plane = torch.from_numpy(np.ascontiguousarray(
+        x.reshape(L, 2 * T).T)).to(device)
+    return plane.t().reshape(L, T, 2)
+
+
+def _k3_edges(device, errs):
+    """K3 bit for bit equal to plain at every width the wrapper picks,
+    reached through ``pick`` by L and T: each case of ``K3_EDGE_CASES``,
+    and the last lane count before the next width.  Its inputs come from
+    a generator of its own, so the phases after it see the same data
+    whatever the cases."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import viterbi
+
+    rng = np.random.default_rng(3)
+    seen = set()
+    for g in viterbi.GROUPS:
+        cases = [_k3_edge(c[0], g) for c in K3_EDGE_CASES]
+        last = next((n - 1 for n in range(2, 1 << 17)
+                     if viterbi.pick(n - 1, 38)[0] == g
+                     and viterbi.pick(n, 38)[0] != g), None)
+        if last is not None:
+            cases.append((last, 38, "header", False))
+        for L, T, layout, ties in cases:
+            soft = _k3_soft(rng, L, T, layout, ties, device)
+            n_bits = max(T - 6, 0)
+            picked = viterbi.pick(L, T)
+            want = viterbi.decode_plain(*viterbi.branch_sums(soft), n_bits)
+            got = viterbi.decode(soft, n_bits)
+            torch.cuda.synchronize()
+            errs.append(_equal_or_raise(
+                f"K3 edge L={L} T={T} {layout} ties={ties} pick={picked}",
+                got, want))
+            seen.add(picked)
+    want = {(g, sh) for g in viterbi.GROUPS for sh in (True, False)}
+    if seen != want:
+        raise RuntimeError(f"K3 edges reached {sorted(seen)}, not every "
+                           f"(threads, shared) of {sorted(want)}")
+    print(f"  K3 edges: {len(K3_EDGE_CASES)} cases at each width "
+          f"{viterbi.GROUPS} the wrapper picks (T = 1, 15, 16, 17, 38, 40, "
+          "the shared-memory switch and one step more; L from the first "
+          "lane of the width's band, partial blocks, near-ties, both "
+          "soft-view layouts) and the last lanes before the next width: "
+          "bits equal to plain at every (threads, shared) instantiation")
+
+
+def _k4_case(rng, case, device):
+    """csum [n_rows, B] and K4's keywords of ``K4_EDGE_CASES[case]``,
+    with its four base vectors: random ones inside and past both plane
+    edges, zeros, the top base and one below -pad_lo."""
+    import numpy as np
+    import torch
+
+    n_rows, B, n_out, ds, stride, pad_lo, virt0, pol = K4_EDGE_CASES[case]
+    csum = torch.from_numpy(np.cumsum(rng.standard_normal(
+        (n_rows, B)).astype(np.float32), 0, dtype=np.float32)).to(device)
+    top = max(n_rows + int(virt0) - ds, 1)
+    kw = dict(n_out=n_out, ds=ds, stride=stride, pad_lo=pad_lo,
+              polarity=pol, virt0=virt0)
+    bases = [torch.from_numpy(np.asarray(b, np.int32)).to(device)
+             for b in (rng.integers(-3, top + 3, B), np.zeros(B),
+                       np.full(B, top - 1), np.full(B, -pad_lo - 1))]
+    return csum, kw, bases
+
+
+# K4's edge cases: (n_rows, B, n_out, ds, stride, pad_lo, virt0, polarity)
+K4_EDGE_CASES = {
+    "header_stride1_virt0": (300, 37, 150, 20, 1, 0, True, 1.0),
+    "body_stride_ds_virt0": (300, 37, 14, 20, 20, 0, True, -1.0),
+    "stride1_pad_lo": (90, 5, 60, 6, 1, 7, False, 1.0),
+    "stride_ds_pad_lo": (90, 5, 20, 6, 6, 5, False, -1.0),
+    "B1": (64, 1, 40, 4, 1, 0, True, 1.0),
+    "B129_two_blocks": (40, 129, 9, 4, 2, 1, False, 1.0),
+    # stride 4 does not divide ds 6: two loads an output
+    "stride_not_dividing_ds": (70, 9, 17, 6, 4, 2, True, -1.0),
+    "n_out_below_ds": (50, 3, 5, 20, 1, 0, False, 1.0),
+    "n_wsum_zero": (20, 4, 9, 20, 1, 0, False, 1.0),
+    "n_wsum_negative": (10, 4, 9, 20, 5, 0, True, 1.0),
+}
+
+
+def _k4_edges(device, errs):
+    """K4 exactly equal to plain at every case of ``K4_EDGE_CASES``:
+    stride 1 and ds (chains) and a stride that does not divide ds, virt0
+    on and off, pad_lo > 0, bases inside, at both plane edges and past
+    them, n_wsum <= 0, B = 1, odd B and two blocks of channels (inputs
+    from a generator of its own)."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import align
+
+    rng = np.random.default_rng(4)
+    n = 0
+    for case in K4_EDGE_CASES:
+        csum, kw, bases = _k4_case(rng, case, device)
+        for base in bases:
+            got = align.aligned_wsum(csum, base, **kw)
+            want = align.aligned_wsum_plain(csum, base, **kw)
+            torch.cuda.synchronize()
+            errs.append(_equal_or_raise(f"K4 edge {case} {kw}", got, want))
+            n += 1
+    print(f"  K4 edges: {n} calls (stride 1, ds and one not dividing ds, "
+          "virt0 on / off, pad_lo > 0, bases inside and past both plane "
+          "edges, n_wsum <= 0, B = 1, odd B, B = 129): identical to plain")
+
+
 def phase_soft_kernels_vs_plain(device, rng):
     import torch
 
@@ -729,21 +947,26 @@ def phase_soft_kernels_vs_plain(device, rng):
           "plain (bits/amps dropped), csum == strict f32 loop over the "
           "full run's softs, R and state == full run")
 
-    # K3 at the header, body and long-trellis shapes
-    for name, (a, d, n_bits) in (("header", planes["header"]),
+    # K3 at the header, body and long-trellis shapes, read in place
+    for name, (soft, n_bits) in (("header", planes["header"]),
                                  ("body", planes["body"]),
                                  ("payload-100", _long_trellis(
-                                     rng, B, device)[:3])):
-        kb = viterbi.decode(a, d, n_bits)
-        pb = viterbi.decode_plain(a, d, n_bits)
+                                     rng, B, device)[:2])):
+        L, T = soft.shape[:2]
+        pb = viterbi.decode_plain(*viterbi.branch_sums(soft), n_bits)
+        threads, shared = viterbi.pick(L, T)
+        kb = viterbi.decode(soft, n_bits)
         torch.cuda.synchronize()
         errs["viterbi"].append(_equal_or_raise(f"K3 {name}", kb, pb))
-        print(f"  K3 {name} L={a.shape[1]} T={a.shape[0]}: bits equal "
-              f"({kb.numel()} bits)")
-    a, d, n_bits, truth = _long_trellis(rng, B, device)
-    wrong = int((viterbi.decode(a, d, n_bits) != truth).any(1).sum())
+        print(f"  K3 {name} L={L} T={T} (soft view strides "
+              f"{tuple(soft.stride())}), {threads} threads a trellis, "
+              f"records in {'shared' if shared else 'device'} memory: bits "
+              f"equal ({kb.numel()} bits)")
+    soft, n_bits, truth = _long_trellis(rng, B, device)
+    wrong = int((viterbi.decode(soft, n_bits) != truth).any(1).sum())
     print(f"  K3 payload-100 at sigma 0.5: {wrong} of {B} trellises "
           "with a bit error")
+    _k3_edges(device, errs["viterbi"])
 
     # K4 at the header and body windows, and at base 0 / the max base
     csum = planes["csum"]
@@ -759,6 +982,8 @@ def phase_soft_kernels_vs_plain(device, rng):
                                                  ka, pa))
         print(f"  K4 {name} window {kw}: torch.equal at the decode's "
               "bases, base 0 and the max base")
+
+    _k4_edges(device, errs["align"])
 
     # K7: K1 without R, at ds > 256
     p50 = FSKParams.from_config(FSKConfig(baud_rate=50,
@@ -932,20 +1157,24 @@ def phase_soft_timings(device, rng, card):
             _cuda_ms(lambda: fsk_seq.seq_plain(*seq_args, **CSUM_FLAGS), 1),
             _nbytes(*seq_args[2:], *out),
             T * B * K1_OPS_PER_SAMPLE + n * B * K1_OPS_PER_DECISION)
-        for name, (a, d, n_bits) in (("header", planes["header"]),
+        for name, (soft, n_bits) in (("header", planes["header"]),
                                      ("body", planes["body"]),
                                      ("payload-100", _long_trellis(
-                                         rng, B // 2, device)[:3])):
-            steps, L = a.shape
-            bits = viterbi.decode(a, d, n_bits)
-            timings[f"viterbi_{name}"] = _timing(
-                f"{name}: L={L} T={steps}",
-                _cuda_ms(lambda: viterbi.decode(a, d, n_bits), 20),
+                                         rng, B // 2, device)[:2])):
+            L, steps = soft.shape[:2]
+            threads, shared = viterbi.pick(L, steps)
+            a, d = viterbi.branch_sums(soft)
+            t = timings[f"viterbi_{name}"] = _timing(
+                f"{name}: L={L} T={steps}, {threads} threads a trellis, "
+                f"records in {'shared' if shared else 'device'} memory",
+                _cuda_ms(lambda: viterbi.decode(soft, n_bits), 20),
                 _cuda_ms(lambda: viterbi.decode_plain(a, d, n_bits), 1),
-                _nbytes(a, d) + steps * L,      # u8 bits out
+                soft.numel() * 4 + steps * L,      # u8 bits out
                 L * (steps * K3_OPS_PER_STEP
                      + (steps // 16) * K3_OPS_PER_NORM))
-            del bits
+            t["graph_ms"] = _graph_ms(lambda: viterbi.decode(soft, n_bits),
+                                      20)
+            del a, d
         csum = planes["csum"]
         for name, (base, _, kw) in planes["align_calls"].items():
             wsum = align.window_sums(csum, kw["ds"], kw["polarity"],
@@ -966,6 +1195,8 @@ def phase_soft_timings(device, rng, card):
                 kw["n_out"] * B * K4_OPS_PER_OUT)
             t["gather_only_ms"] = _cuda_ms(
                 lambda: torch.gather(wsum, 0, idx), 20)
+            t["graph_ms"] = _graph_ms(
+                lambda: align.aligned_wsum(csum, base, **kw), 20)
             timings[f"align_{name}"] = t
         for name, t in timings.items():
             if isinstance(t, dict) and "shape" in t:
@@ -973,6 +1204,9 @@ def phase_soft_timings(device, rng, card):
                 if "gather_only_ms" in t:
                     print(f"    torch.gather alone, over window sums made "
                           f"beforehand: {t['gather_only_ms']:.4f} ms")
+                if "graph_ms" in t:
+                    print(f"    the kernel's device time in a CUDA graph "
+                          f"(no host gaps): {t['graph_ms']:.4f} ms a call")
         try:
             _profile(f"soft decode B={B}", lambda: [
                 soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
@@ -1458,12 +1692,19 @@ def _program_args(rx, device):
 
 def _record_emits(rx):
     """Keep each quantum's detector emits (an int32 [4, B] plane on the
-    card: emit_a, pos1, emit_b, pos_b) for the checks after the run."""
+    card: emit_a, pos1, emit_b, pos_b) for the checks after the run.
+    The wrapper reaches the receiver through a weak reference: a bound
+    method would make a cycle, and the receiver's planes (GiBs at
+    B=4096) would then outlive ``del rx`` until the cyclic collector
+    runs."""
+    import weakref
+
     emits = []
-    detect = rx._detect
+    detect = type(rx)._detect
+    owner = weakref.ref(rx)
 
     def step(*args):
-        out = detect(*args)
+        out = detect(owner(), *args)
         emits.append(out)
         return out
 
@@ -2378,30 +2619,41 @@ def main() -> int:
     rng = np.random.default_rng(0)
     print("phase 3: hard-path kernels vs plain on the card")
     max_err = phase_kernels_vs_plain(device, rng)
+    _resident("phase 3")
     print("phase 4: hard main path")
     hard_launches = phase_main_path(device, rng)
+    _resident("phase 4")
     print("phase 5: hard-path timings")
     kernel_ms = phase_timings(device, rng, card)
+    _resident("phase 5")
     print("phase 6: soft-path kernels vs plain on the card")
     soft_errs, k7_timing = phase_soft_kernels_vs_plain(device, rng)
     for name, err in soft_errs.items():
         max_err[name] = max(max_err.get(name, 0.0), err)
     _print_timing("fsk_seq K7", k7_timing, card)
+    _resident("phase 6")
     print("phase 7: soft main path")
     soft_launches = phase_soft_main_path(device, rng)
+    _resident("phase 7")
     print("phase 8: soft-path timings")
     soft = phase_soft_timings(device, rng, card)
+    _resident("phase 8")
     print("phase 9: DBPSK kernel vs plain on the card")
     for name, err in phase_psk_kernels_vs_plain(device, rng).items():
         max_err[name] = max(max_err.get(name, 0.0), err)
+    _resident("phase 9")
     print("phase 10: DBPSK main path")
     psk_launches = phase_psk_main_path(device, rng)
+    _resident("phase 10")
     print("phase 11: DBPSK timings")
     psk = phase_psk_timings(device, rng, card)
+    _resident("phase 11")
     print("phase 12: K5 vs plain on the card")
     max_err["cumsum0"] = phase_cumsum_vs_plain(device)
+    _resident("phase 12")
     print("phase 13: blind acquisition and the streaming soft decoder")
     blind_launches, blind_out = phase_blind_main_path(device, rng, card)
+    _resident("phase 13")
     print("phase 14: blind timings")
     blind = phase_blind_timings(device, rng, card)
     print("phase 15: K8 vs plain on the card")
@@ -2457,9 +2709,13 @@ def main() -> int:
         row("fsk_framing", "fsk_framing.cu", "fsk_framing.py:208",
             kernel_ms["fsk_framing"], {}),
         row("viterbi", "viterbi.cu", "viterbi.py:82", soft["viterbi_header"],
-            others("viterbi_body", "viterbi_payload-100")),
+            {**others("viterbi_body", "viterbi_payload-100"),
+             "graph_ms": {n: soft[f"viterbi_{n}"]["graph_ms"]
+                          for n in ("header", "body", "payload-100")}}),
         row("align", "align.cu", "align.py:75", soft["align_header"],
             {**others("align_body"),
+             "graph_ms": {n: soft[f"align_{n}"]["graph_ms"]
+                          for n in ("header", "body")},
              "gather_only_ms": {n: soft[f"align_{n}"]["gather_only_ms"]
                                 for n in ("header", "body")}}),
         row("psk_seq", "psk_seq.cu", "psk_seq.py:54", psk["psk_seq"],

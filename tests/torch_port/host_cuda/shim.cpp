@@ -8,7 +8,8 @@ alignas(128) unsigned char wam_smem[1 << 18];
 std::mutex wam_mu;
 std::condition_variable wam_cv;
 WamBarrier wam_barriers[16];
-bool wam_failed = false;
+WamWarp wam_warps[32];
+std::atomic<bool> wam_failed{false};
 
 namespace wam {
 thread_local std::vector<HostCopy> host_open;

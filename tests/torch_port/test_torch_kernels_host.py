@@ -1,4 +1,4 @@
-"""The CUDA sources of K1 / K7, K2, K8, K6 and K5 built for the CPU with g++
+"""The CUDA sources of K1 / K7, K2, K8, K6, K5, K3 and K4 built for the CPU with g++
 over a host emulation of CUDA (``host_cuda/``), against their plain
 versions, through the port's own wrappers.
 
@@ -8,9 +8,13 @@ threads as threads of the host, so the warp-specialised pipelines' hand
 over (named barriers, cp.async copies that land only at their wait) and
 their edges (partial blocks, partial tiles, T = 0, odd B, a misaligned
 bits plane) are exercised by the CPU suite: a barrier that never
-completes fails the launch instead of hanging.
+completes fails the launch instead of hanging.  K3's warp shuffles and
+ballots meet the warp's 32 emulated threads, so every group width and
+both placements of its decision records run here (with a smaller
+shared budget than the card's, so that the placements switch at short
+trellises).
 
-Tolerances: K2, K8 and K5 exactly (integer state machine and IEEE f32
+Tolerances: K2, K8, K5, K3 and K4 exactly (integer state machine and IEEE f32
 arithmetic, no transcendental).  K1 and K6 run ``atan2f`` from the
 host's C library where the plain versions run torch's, which may round
 differently: floats within atol 1e-4, a sliced bit may differ only where
@@ -24,6 +28,7 @@ import dataclasses
 import re
 import shutil
 import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -34,18 +39,27 @@ import torch
 from torch_port_helpers import random_messages, signals
 from webaudio_modem_tpu_torch.models import psk as psk_model
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
-from webaudio_modem_tpu_torch.ops import fsk_demod, psk
-from webaudio_modem_tpu_torch.ops.kernels import (_build, cumsum0,
+from webaudio_modem_tpu_torch.ops import fec, fsk_demod, psk
+from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
                                                   fsk_framing, fsk_seq,
-                                                  psk_seq)
+                                                  psk_seq, viterbi)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+import chip_smoke as cs  # noqa: E402  (the card's edge cases, shared)
 
 HOST = Path(__file__).resolve().parent / "host_cuda"
-NAMES = ("fsk_seq", "fsk_framing", "fsk_stage_d", "psk_seq", "cumsum0")
+NAMES = ("fsk_seq", "fsk_framing", "fsk_stage_d", "psk_seq", "cumsum0",
+         "viterbi", "align")
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?(?:\[[^\]]+\])?)\s*<<<(.*?)>>>\s*\(",
                     re.S)
 SHARED = re.compile(r"extern __shared__ ([\w ]+?)\s+(\w+)\[\];")
 ATOL = 1e-4
 FLIP_SOFT = 1e-5
+# K3 is built here with a 16 KiB shared budget (the card's is 112 KiB),
+# so that each width's shared / device switch lies at a T the emulation
+# runs in seconds: 16 steps at G = 1 to 512 at G = 32
+K3_BUDGET = re.compile(r"kSmemBudget = [^;]+;")
+HOST_K3_BUDGET = 16 * 1024
 
 
 @pytest.fixture(scope="module")
@@ -62,6 +76,9 @@ def host_libs(tmp_path_factory):
             continue
         text = LAUNCH.sub(r"wam_launch(\1, \2, ", src.read_text())
         text = SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>(wam_smem);", text)
+        if src.name == "viterbi.cu":
+            text, n = K3_BUDGET.subn(f"kSmemBudget = {HOST_K3_BUDGET};", text)
+            assert n == 1, "K3's shared-memory budget moved"
         (out / (src.stem + (".cpp" if src.suffix == ".cu" else ".cuh"))
          ).write_text(text)
     shutil.copy(HOST / "warp_pipe.cuh", out / "warp_pipe.cuh")
@@ -89,6 +106,7 @@ def on_host(host_libs, monkeypatch):
     monkeypatch.setattr(_build, "stream", lambda: ctypes.c_void_p(None))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(viterbi, "SMEM_BUDGET", HOST_K3_BUDGET)
 
 
 def _bench():
@@ -355,3 +373,123 @@ def test_host_warp_pipe_mirrors_the_card_header():
     card = prim.findall((_build.CSRC_DIR / "warp_pipe.cuh").read_text())
     host = prim.findall((HOST / "warp_pipe.cuh").read_text())
     assert card and sorted(card) == sorted(host)
+
+
+def test_host_shim_emulates_every_cuda_call_of_csrc():
+    """Every CUDA call of a kernel source (``__shfl_sync``,
+    ``__ballot_sync``, ``cudaFuncSetAttribute``, ...) is one that
+    ``cuda_shim.h`` emulates: a primitive a kernel starts to use fails
+    here until the emulation has it.  ``warp_pipe.cuh`` has a host copy
+    of its own (the test above)."""
+    call = re.compile(r"\b(__\w+|cuda[A-Z]\w*)\s*\(")
+    shim = (HOST / "cuda_shim.h").read_text()
+    emulated = set(re.findall(r"\b(__\w+|cuda[A-Z]\w*)\b", shim))
+    used = {}
+    for src in _build.CSRC_DIR.iterdir():
+        if src.suffix not in (".cu", ".cuh") or src.name == "warp_pipe.cuh":
+            continue
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src.read_text(), flags=re.S)
+        for name in call.findall(code):
+            used.setdefault(name, src.name)
+    assert {"__shfl_sync", "__ballot_sync"} <= set(used)
+    missing = {n: f for n, f in used.items() if n not in emulated}
+    assert not missing, f"not emulated in cuda_shim.h: {missing}"
+
+
+# -- K3 ----------------------------------------------------------------------
+# The edge cases and their inputs are chip_smoke.py's, which holds the
+# same cases on the card.
+
+def _k3_case(case, threads):
+    """K3 edge case ``case`` at ``threads`` threads a trellis, reached
+    through ``pick`` by L and T, against the plain version bit for bit;
+    returns whether its records were in shared memory."""
+    L, T, layout, ties = cs._k3_edge(case, threads)
+    shared = T <= viterbi.shared_max_steps(threads)
+    assert viterbi.pick(L, T) == (threads, shared)
+    rng = np.random.default_rng(T * 64 + threads)
+    soft = cs._k3_soft(rng, L, T, layout, ties, torch.device("cpu"))
+    if layout == "body":                      # a view of [2T, L], no copy
+        assert soft.stride() == (1, 2 * L, L)
+    n_bits = max(T - fec.K + 1, 0)
+    want = viterbi.decode_plain(*viterbi.branch_sums(soft), n_bits)
+    before = viterbi.launches
+    got = viterbi.decode(soft, n_bits)
+    assert viterbi.launches == before + 1
+    assert got.shape == want.shape == (L, n_bits)
+    assert torch.equal(got, want)
+    return shared
+
+
+@pytest.mark.parametrize("threads", viterbi.GROUPS)
+@pytest.mark.parametrize("case", [c[0] for c in cs.K3_EDGE_CASES
+                                  if isinstance(c[1], int)])
+def test_k3_edges(on_host, case, threads):
+    """K3 at every width its wrapper picks equals the plain version bit
+    for bit, reached through ``pick`` by L and T: T = 1, 15, 16, 17
+    (around one normalization period), 38 (the header) and 40 with
+    near-ties; L from the first lane count of the width, partial blocks
+    and one short of a block, both soft-view layouts; records where the
+    wrapper puts them (past the switch of the emulation's small budget,
+    device memory)."""
+    _k3_case(case, threads)
+
+
+@pytest.mark.parametrize("threads", viterbi.GROUPS)
+def test_k3_record_placements(on_host, threads):
+    """Both placements of the decision records at the switch, as ``pick``
+    chooses them: the longest trellis that fits the emulation's shared
+    budget, then one step more (device memory)."""
+    assert _k3_case("shared_switch", threads)
+    assert not _k3_case("past_the_switch", threads)
+
+
+@pytest.mark.parametrize("L,T,threads,shared", [
+    (32768, 38, 1, True),        # the header candidates at B = 4096
+    (8192, 113, 1, False),
+    (8191, 38, 8, True),         # one lane below G = 1
+    (4096, 150, 8, True),        # the bodies
+    (2048, 822, 8, True),        # payload-100 bodies
+    (768, 897, 8, False),
+    (767, 150, 32, True),        # one lane below G = 8
+    (8, 38, 32, True),           # a few lanes
+    (61, 38, 32, True),          # SoftFrameDecoder's header candidates
+    (1, 150, 32, True),          # its 16-byte body
+    (4, 2062, 32, True),         # the blind receiver's longest body
+    (1, 3585, 32, False)])
+def test_k3_pick(L, T, threads, shared):
+    """The wrapper's choice: one thread a trellis for many lanes, 8 below,
+    32 for a few; records in shared memory while they fit."""
+    assert viterbi.pick(L, T) == (threads, shared)
+    assert shared == (T <= viterbi.shared_max_steps(threads))
+
+
+def test_k3_through_viterbi_core(on_host):
+    """``fec._viterbi_core`` hands the kernel a batch of soft views in
+    place, with the batch shape kept."""
+    rng = np.random.default_rng(9)
+    soft = torch.from_numpy(rng.standard_normal((2, 3, 38, 2)).astype(
+        np.float32))
+    got = fec._viterbi_core(soft, 32)
+    a, d = viterbi.branch_sums(soft)
+    want = viterbi.decode_plain(a, d, 32).reshape(2, 3, 32)
+    assert torch.equal(got, want)
+
+
+# -- K4 ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", list(cs.K4_EDGE_CASES))
+def test_k4_exact(on_host, case):
+    """K4 equals its plain version exactly: stride 1 and ds (chains) and a
+    stride that does not divide ds, ``virt0`` on and off, ``pad_lo`` > 0,
+    bases inside, at both plane edges and past them, n_wsum <= 0, B = 1,
+    odd B and two blocks of channels."""
+    n_rows, B = cs.K4_EDGE_CASES[case][:2]
+    rng = np.random.default_rng(n_rows + B)
+    csum, kw, bases = cs._k4_case(rng, case, torch.device("cpu"))
+    for base in bases:
+        want = align.aligned_wsum_plain(csum, base, **kw)
+        before = align.launches
+        got = align.aligned_wsum(csum, base, **kw)
+        assert align.launches == before + 1
+        assert torch.equal(got, want), (case, base[:4])

@@ -186,7 +186,7 @@ def test_wrappers_raise_off_cpu(kernel):
         elif kernel == "fsk_stage_d":
             fsk_demod.stage_d(params, state, z.bfloat16(), z, z, z)
         elif kernel == "viterbi":
-            viterbi.decode(z, z, 2)
+            viterbi.decode(z.reshape(4, 4, 2), 2)
         elif kernel == "cumsum0":
             cumsum0.csum0(z)
         elif kernel == "psk_seq":

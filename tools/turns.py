@@ -35,6 +35,27 @@ compared by.  WHAT is one of:
   over 20 launches between two CUDA events, beside ``torch.cumsum`` of
   the same plane and K5's byte bound (one read of x, one write of the
   output at 3.35 TB/s), with a hash of K5's output.
+* ``fec`` — K3 and K4 on the soft decode's own planes, as
+  ``chip_smoke.py`` phase 8 times them: 4096 distinct 16-byte payloads
+  at 8 dB through K1's csum mode, then K4's header window (1532 x 4096,
+  stride 1) and body window (300 x 4096, stride ds), K3 on the header
+  candidates (L = 32,768, T = 38) and on the bodies (L = 4096, T = 150),
+  and K3 on 2048 payload-100 bodies (T = 822, coded +-1 pairs plus noise
+  of sigma 0.5 from seed 8), each five times over 20 launches between
+  two CUDA events and three times over 20 launches captured in a CUDA
+  graph (device time without the wrappers' host gaps), with a hash of
+  each one's outputs.  K3 is given the
+  soft view [L, T, 2] where its wrapper takes it, else (the parent) the
+  branch sums a = x0 + x1, d = x0 - x1 made beforehand; ``_viterbi_core``
+  on the soft view, glue included, is timed beside it.
+* ``blind`` — the blind receiver's ``feed`` as ``chip_smoke.py`` phase
+  14 drives it, in a fresh process: B = 4096 channels of a cyclic stream
+  of one 16-byte frame each at 8 dB (noise drawn on the card from seed
+  3), two cycles of warm-up, then the host wall per feed over two cycles,
+  three times, the peak device memory of those feeds, a hash of the
+  delivered (channel, payload) sequence, and a ``torch.profiler``
+  breakdown of one cycle (device time per feed by kernel, and the
+  busy share of the fastest unprofiled wall).
 * ``soft_decode`` — the farm soft-FEC decode of 2048 and 4096 distinct
   16-byte payloads at 8 dB, as ``chip_smoke.py`` phase 8 makes them,
   decoded exactly three times over as ten pipelined
@@ -201,6 +222,134 @@ for n, B in cs.CSUM_SHAPES:
           f"{bound:.4f} ms); torch.cumsum {lib:.4f} ms; outputs sha256 "
           f"{digest}", flush=True)
     del x
+""",
+    "fec": r"""
+import inspect
+from webaudio_modem_tpu_torch.ops import fec, fsk_demod, soft_fsk
+from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq, viterbi
+params = cs._soft_params()
+rng = np.random.default_rng(8)
+B = 4096
+_, noisy = cs._soft_batch(params, rng, B, dev)
+ds = params.ds_samples_per_bit
+state = fsk_demod.init_state(params, B, dev)
+out = fsk_seq.seq(params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
+                  noisy.t().contiguous(), emit_bits=False, emit_amps=False,
+                  emit_csum=True)
+csum, rsum = out[4], out[5]
+body_n = soft_fsk._body_coded_bits(16)
+t_peak, ok = soft_fsk._sync_peak(params, rsum)
+starts, h_llr, valid = soft_fsk._header_llrs(params, csum, t_peak, ok, body_n)
+L = h_llr.shape[0] * h_llr.shape[1]
+h_soft = h_llr.reshape(L, -1, 2)
+headers = fec._viterbi_core(h_soft, 8 * soft_fsk.HEADER_PLAIN).reshape(
+    B, -1, 8 * soft_fsk.HEADER_PLAIN)
+found, _, st = soft_fsk._select_candidate(headers, starts, valid,
+                                          payload_len=16)
+b_starts = torch.where(found, st + soft_fsk.HEADER_CODED_BITS * ds,
+                       torch.zeros_like(st))
+n_ds = csum.shape[0]
+windows = {"header": soft_fsk._header_window(params, n_ds, t_peak),
+           "body": soft_fsk._body_window(params, n_ds, b_starts, 16)}
+b_soft = soft_fsk._body_llrs(params, csum, b_starts, 16).t().reshape(
+    B, -1, 2)
+bits = rng.integers(0, 2, (2048, 8 * 102), dtype=np.uint8)
+coded = fec.conv_encode_bits_batch(bits).astype(np.float32) * 2 - 1
+coded += 0.5 * rng.standard_normal(coded.shape, dtype=np.float32)
+long_soft = torch.from_numpy(coded).to(dev).reshape(2048, -1, 2)
+in_place = next(iter(inspect.signature(viterbi.decode).parameters)) == "soft"
+
+
+def digest(t):
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def graph_ms(fn, reps):
+    # device time a call: reps calls in one CUDA graph, replayed between
+    # two CUDA events (chip_smoke._graph_ms; a parent may lack it)
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cs._cuda_ms(graph.replay, 3) / reps
+
+
+def report(name, fn, reps=20):
+    out = fn()
+    d = digest(out)
+    del out
+    for _ in range(3):
+        fn()
+    ms = [cs._cuda_ms(fn, reps) for _ in range(5)]
+    graph = [graph_ms(fn, reps) for _ in range(3)]
+    print(f"turn {sys.argv[2]} {name}: "
+          f"{', '.join(f'{m:.4f}' for m in ms)} ms per call enqueued one by "
+          f"one; {', '.join(f'{m:.4f}' for m in graph)} ms per call in a "
+          f"CUDA graph; outputs sha256 {d}", flush=True)
+
+
+for name, (base, _, kw) in windows.items():
+    report(f"K4 {name} {kw['n_out']} x {B} stride {kw['stride']}",
+           lambda: align.aligned_wsum(csum, base, **kw))
+for name, soft, n in (("header", h_soft, 8 * soft_fsk.HEADER_PLAIN),
+                      ("body", b_soft, 8 * 18),
+                      ("payload-100", long_soft, 8 * 102)):
+    label = f"K3 {name} L={soft.shape[0]} T={soft.shape[1]}"
+    if in_place:
+        report(label, lambda: viterbi.decode(soft, n))
+    else:
+        a, d = fec.branch_sums(soft)        # the parent's fec has it
+        report(label, lambda: viterbi.decode(a, d, n))
+    report(f"{label} _viterbi_core (glue included)",
+           lambda: fec._viterbi_core(soft, n))
+""",
+    "blind": r"""
+from webaudio_modem_tpu_torch.ops import soft_fsk
+from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
+from webaudio_modem_tpu_torch.sim import make_device_awgn
+params = cs._soft_params()
+rng = np.random.default_rng(8)
+B = cs.MAIN_BATCH
+payloads, cycle, period = cs._cycle_stream(params, rng, B, dev)
+sig_power = float(torch.mean(soft_fsk.encode_frames_batch(
+    params, payloads[:16], device=dev).double() ** 2))
+rx = BlindSoftBatchReceiver(
+    params, B, cs.CHUNK, seed=3, device=dev,
+    channel_fn=make_device_awgn(sig_power / 10 ** (cs.SOFT_SNR_DB / 10)))
+quanta = [cycle[:, j * cs.CHUNK:(j + 1) * cs.CHUNK] for j in range(period)]
+got = hashlib.sha256()
+count = [0, 0]
+
+
+def feeds(n):
+    for _ in range(n):
+        for ch, pl in rx.feed(quanta[rx._fed % period]):
+            got.update(int(ch).to_bytes(4, "little") + pl)
+            count[0] += 1
+            count[1] += pl != payloads[ch]
+
+
+feeds(2 * period)                       # warm-up
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+walls = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    feeds(2 * period)
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3 / (2 * period))
+peak = torch.cuda.max_memory_allocated() / 2 ** 20
+print(f"turn {sys.argv[2]} blind feed B={B}, period {period}: host wall "
+      f"{', '.join(f'{w:.3f}' for w in walls)} ms per feed over "
+      f"{2 * period} feeds; peak {peak:.1f} MiB; {count[0]} payloads, "
+      f"{count[1]} wrong, sha256 {got.hexdigest()[:16]}", flush=True)
+cs._profile(f"turn {sys.argv[2]} blind feed", lambda: feeds(period), period,
+            min(walls), torch.cuda.get_device_name(0))
 """,
     "soft_decode": r"""
 from webaudio_modem_tpu_torch.ops import soft_fsk

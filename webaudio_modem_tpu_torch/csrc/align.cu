@@ -15,52 +15,87 @@
 // outside the plane are exact zeros.
 //
 // Design.  The TPU needed a select ladder because a per-lane gather
-// serializes there; a GPU gathers per lane natively, so the barrel is
-// gone: one thread per output element (j, b), b fastest, so a warp's
-// stores are 32 consecutive words.  Its two loads hit row r and r + ds
-// of its own channel; neighbouring channels sit at other rows, so a
-// warp's load touches up to 32 sectors — the windows of consecutive j
-// reuse them through L2.
+// serializes there; a GPU gathers per lane natively.  A 2-D grid:
+// channels on x, so that a warp holds 32 consecutive channels and its
+// stores at one j are 128 contiguous bytes; runs of outputs on y (and
+// the run's phase on z), so no thread divides.  Where ds is a multiple
+// of the stride (both calls of the soft decode: stride 1 and stride
+// ds), output j's high row is output j + ds / stride's low row: a
+// thread walks a chain j0, j0 + ds / stride, ... of kRun outputs and
+// loads its kRun + 1 rows once each, all issued before the first
+// subtraction.  Other strides load two rows an output.
 //
-// What bounds it on an H100.  Two reads and one write of 4 bytes per
-// output, one subtraction and one multiply: memory.  At the header
-// window (1,532 x 2,048 outputs) the bytes the data needs are ~25 MB,
-// ~8 us at 3.35 TB/s; sector over-fetch on the scattered loads is what
-// this simple form gives away.
+// What bounds it on an H100.  One read of each needed row and one write
+// of each output, one subtraction and one multiply an output: memory.
+// At the header window (1,532 x 4,096 outputs) that is ~50 MB, 15 us at
+// 3.35 TB/s.  The chains reload one row in kRun + 1 at their ends, and a
+// warp's loads cover 32 channels at their own rows: one 128-byte line
+// where the channels' bases agree, up to 32 sectors where they do not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kRun = 8;           // outputs a thread
 
+template <bool kChain>
 __global__ void __launch_bounds__(kThreads)
 align_kernel(const float* __restrict__ csum, int n_rows, int B,
              const int32_t* __restrict__ base, int n_out, int ds, int stride,
              int pad_lo, float pol, int virt0, float* __restrict__ out) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  if (idx >= static_cast<size_t>(n_out) * B) return;
-  const int b = static_cast<int>(idx % B);
-  const long long j = static_cast<long long>(idx / B);
-  const long long r = static_cast<long long>(base[b]) + j * stride - pad_lo;
-  const long long n_wsum = static_cast<long long>(n_rows) + (virt0 ? 1 : 0) -
-                           ds;
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
   const size_t Bs = static_cast<size_t>(B);
-  float v = 0.0f;
-  if (r >= 0 && r < n_wsum) {
-    float hi, lo;
-    if (virt0) {
-      hi = csum[static_cast<size_t>(r + ds - 1) * Bs + b];
-      lo = r == 0 ? 0.0f : csum[static_cast<size_t>(r - 1) * Bs + b];
-    } else {
-      hi = csum[static_cast<size_t>(r + ds) * Bs + b];
-      lo = csum[static_cast<size_t>(r) * Bs + b];
+  // rows of the csum as read: with virt0 a zero row comes first
+  const long long n_virt = static_cast<long long>(n_rows) + virt0;
+  const long long n_wsum = n_virt - ds;
+  // virtual row i (virt0 <= i < n_virt) is csum row i - virt0
+  const float* col = csum + b;
+  const long long shift = virt0;
+  // the chain's step in j (kChain) and its first output
+  const int step = kChain ? ds / stride : 1;
+  const long long j0 = static_cast<long long>(blockIdx.y) * step * kRun +
+                       blockIdx.z;
+  const long long r0 = static_cast<long long>(base[b]) + j0 * stride -
+                       pad_lo;
+  const long long r_step = static_cast<long long>(step) * stride;
+  if (kChain) {
+    // rows r0 + m * ds, m <= kRun: row m is output m's low row and
+    // output m - 1's high row
+    float v[kRun + 1];
+#pragma unroll
+    for (int m = 0; m <= kRun; ++m) {
+      const long long i = r0 + m * r_step;
+      const bool used = j0 + (m > 0 ? m - 1 : 0) * static_cast<long long>(
+                                                       step) < n_out;
+      v[m] = used && i >= shift && i < n_virt ? col[(i - shift) * Bs]
+                                              : 0.0f;
     }
-    v = pol * (hi - lo);
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) {
+      const long long j = j0 + static_cast<long long>(m) * step;
+      if (j >= n_out) break;
+      const long long r = r0 + m * r_step;
+      out[j * Bs + b] = r >= 0 && r < n_wsum ? pol * (v[m + 1] - v[m])
+                                             : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) {
+      const long long j = j0 + m;
+      if (j >= n_out) break;
+      const long long r = r0 + m * static_cast<long long>(stride);
+      float o = 0.0f;
+      if (r >= 0 && r < n_wsum) {
+        const float hi = col[(r + ds - shift) * Bs];
+        const float lo = r < shift ? 0.0f : col[(r - shift) * Bs];
+        o = pol * (hi - lo);
+      }
+      out[j * Bs + b] = o;
+    }
   }
-  out[idx] = v;
 }
 
 }  // namespace
@@ -71,9 +106,19 @@ extern "C" int wam_align(const float* csum, int n_rows, int B,
                          const int32_t* base, int n_out, int ds, int stride,
                          int pad_lo, float pol, int virt0, float* out,
                          void* stream) {
-  const size_t n = static_cast<size_t>(n_out) * B;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  align_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      csum, n_rows, B, base, n_out, ds, stride, pad_lo, pol, virt0, out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool chain = ds % stride == 0;
+  const int step = chain ? ds / stride : 1;
+  const long long run = static_cast<long long>(step) * kRun;
+  dim3 grid((B + kThreads - 1) / kThreads,
+            static_cast<unsigned>((n_out + run - 1) / run),
+            static_cast<unsigned>(step < n_out ? step : n_out));
+  if (chain) {
+    align_kernel<true><<<grid, kThreads, 0, s>>>(
+        csum, n_rows, B, base, n_out, ds, stride, pad_lo, pol, virt0, out);
+  } else {
+    align_kernel<false><<<grid, kThreads, 0, s>>>(
+        csum, n_rows, B, base, n_out, ds, stride, pad_lo, pol, virt0, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,8 @@ Counterpart of ``webaudio_modem_tpu/ops/fec.py``:
     bits — numpy, copied from the reference;
   * the batched soft-decision Viterbi decoder ``_viterbi_core``: kernel
     K3 (``ops/kernels/viterbi.py``, ``csrc/viterbi.cu``) on CUDA
-    tensors, its plain PyTorch version on CPU tensors, both with the
+    tensors, reading the correlations in place, its plain PyTorch
+    version over ``kviterbi.branch_sums`` on CPU tensors, both with the
     grouped (every 16 steps) normalization; ``per_step_norm=True`` is
     the reference's normalize-every-step schedule, plain PyTorch on any
     device (no TPU kernel backs it);
@@ -112,32 +113,24 @@ def conv_encode_bits_batch(bits: np.ndarray) -> np.ndarray:
     return coded
 
 
-def branch_sums(soft: torch.Tensor):
-    """The trellis inputs of correlations soft [..., T, 2]: a = x0 + x1
-    and d = x0 - x1, one add each as the reference, time-major [T, L]
-    with L the flattened batch."""
-    flat = soft.reshape(-1, soft.shape[-2], 2)
-    a = (flat[..., 0] + flat[..., 1]).t().contiguous()
-    d = (flat[..., 0] - flat[..., 1]).t().contiguous()
-    return a, d
-
-
 def _viterbi_core(soft: torch.Tensor, n_bits: int,
                   per_step_norm: bool = False) -> torch.Tensor:
     """soft: f32 [..., n_bits + K - 1, 2] correlations (+1 ~ coded bit
-    1, -1 ~ coded bit 0; magnitude = confidence), on any device.
-    Returns the decoded bits u8 [..., n_bits] on the same device (the
-    flush bits are consumed, not returned).
+    1, -1 ~ coded bit 0; magnitude = confidence), on any device, any
+    strides.  Returns the decoded bits u8 [..., n_bits] on the same
+    device (the flush bits are consumed, not returned).
 
     The default groups 16 steps per normalization (kernel K3 on the
-    card); ``per_step_norm=True`` normalizes after every step, the
-    reference's original schedule."""
+    card, reading the soft view in place: no copy where the batch
+    dimensions flatten to one); ``per_step_norm=True`` normalizes after
+    every step, the reference's original schedule."""
     batch_shape = soft.shape[:-2]
-    a, d = branch_sums(soft)
+    flat = soft.reshape(-1, soft.shape[-2], 2)
     if per_step_norm:
+        a, d = kviterbi.branch_sums(flat)
         bits = kviterbi.decode_plain(a, d, n_bits, group=1)
     else:
-        bits = kviterbi.decode(a, d, n_bits)
+        bits = kviterbi.decode(flat, n_bits)
     return bits.reshape(batch_shape + (n_bits,))
 
 

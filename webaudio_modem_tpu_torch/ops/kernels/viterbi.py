@@ -3,17 +3,21 @@
 Replaces ``webaudio_modem_tpu/ops/pallas/viterbi.py`` ``_kernel``
 (through ``decode``) and the lax scan of
 ``webaudio_modem_tpu/ops/fec.py:_viterbi_core`` it is bit-identical to.
-The trellis runs over time-major branch sums ``a = x0 + x1`` and
-``d = x0 - x1`` [T, L] (one lane per channel x candidate): per step
-every state's two candidates are one add of +-a or +-d to a
-predecessor metric, the decision is ``c1 > c0``, and after every 16
-steps the max over the 64 states is subtracted; the traceback starts
-from state 0.
+The trellis runs over the branch sums ``a = x0 + x1`` and
+``d = x0 - x1`` of the coded pairs of a soft view [L, T, 2] (one lane
+per channel x candidate): per step every state's two candidates are one
+add of +-a or +-d to a predecessor metric, the decision is ``c1 > c0``,
+and after every 16 steps the max over the 64 states is subtracted; the
+traceback starts from state 0.
 
-On CUDA tensors ``decode`` launches ``csrc/viterbi.cu``; on CPU tensors
-it runs ``decode_plain``.  There is no lane-count or trellis-length
-gate: the reference fell back to the lax scan above ~90-byte payloads
-because of its VMEM budget, the port runs the kernel there too.
+On CUDA tensors ``decode`` launches ``csrc/viterbi.cu`` on the soft view
+in place (any strides); its trellises run on groups of 1, 8 or 32
+threads (``pick``), with their decision records in shared memory while
+they fit, else in a device-memory scratch.  On CPU tensors it runs
+``decode_plain`` over ``branch_sums``.  There is no lane-count or
+trellis-length gate: the reference fell back to the lax scan above
+~90-byte payloads because of its VMEM budget, the port runs the kernel
+there too.
 """
 
 from __future__ import annotations
@@ -28,6 +32,16 @@ from webaudio_modem_tpu_torch.ops.kernels import _build
 
 N_STATES = 64
 GROUP = 16               # normalization period of the grouped schedule
+THREADS = 128            # threads a block (csrc/viterbi.cu kThreads)
+SMEM_BUDGET = 112 * 1024  # shared-memory records a block (kSmemBudget)
+GROUPS = (1, 8, 32)      # threads per trellis the kernel takes
+# ``pick``'s thresholds, from the ladder of ``tools/variants.py k3`` on an
+# H100 (T = 38, 150 and 822; L from 1 to 32,768): one thread a trellis
+# from 8192 lanes (at 6144 it is 4 % faster at T = 38, 10 % slower at
+# T = 150), 8 from 768 (where 8 and 32 tie at T = 150 and 8 is 3 %
+# faster at T = 822), 32 below (at 512, 0.75 x the time of 8)
+ONE_THREAD_MIN_L = 8192
+FEW_LANES = 768
 _NEG = -1e9              # initial metric of every state but 0
 _G0, _G1 = 0o171, 0o133  # generator taps (ops/fec.py G0, G1)
 # kernel launches through ``decode`` (CPU calls run the plain version and
@@ -60,6 +74,16 @@ def branch_terms() -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
+
+def branch_sums(soft: torch.Tensor):
+    """The trellis inputs of correlations soft [..., T, 2]: a = x0 + x1
+    and d = x0 - x1, one add each as the reference, time-major [T, L]
+    with L the flattened batch."""
+    flat = soft.reshape(-1, soft.shape[-2], 2)
+    a = (flat[..., 0] + flat[..., 1]).t().contiguous()
+    d = (flat[..., 0] - flat[..., 1]).t().contiguous()
+    return a, d
+
 
 def decode_plain(a: torch.Tensor, d: torch.Tensor, n_bits: int,
                  group: int = GROUP) -> torch.Tensor:
@@ -99,31 +123,60 @@ def decode_plain(a: torch.Tensor, d: torch.Tensor, n_bits: int,
 def _entry():
     fn = _build.library("viterbi").wam_viterbi
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, ci, ci, cl, cl, cl, ci, ci, vp, vp, vp]
         fn.restype = ci
     return fn
 
 
-def decode(a: torch.Tensor, d: torch.Tensor, n_bits: int) -> torch.Tensor:
-    """Decode L trellises of T steps: a, d f32 [T, L] time-major ->
-    bits u8 [L, n_bits] (the first n_bits input bits; the flush steps are
-    consumed)."""
+def shared_max_steps(threads: int) -> int:
+    """The longest trellis whose decision records fit a block's shared
+    memory at ``threads`` threads a trellis (8 bytes a step, 128 /
+    threads trellises a block)."""
+    return SMEM_BUDGET // (8 * (THREADS // threads))
+
+
+def pick(L: int, T: int):
+    """(threads per trellis, records in shared memory) for L trellises
+    of T steps: 1 thread a trellis from ONE_THREAD_MIN_L lanes, 8 from
+    FEW_LANES, else 32; records in shared memory while they fit."""
+    threads = 1 if L >= ONE_THREAD_MIN_L else 8 if L >= FEW_LANES else 32
+    return threads, T <= shared_max_steps(threads)
+
+
+def decode(soft: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Decode L trellises of T steps: soft f32 [L, T, 2] correlations,
+    any strides -> bits u8 [L, n_bits] (the first n_bits input bits; the
+    flush steps are consumed), on the instantiation ``pick`` names."""
     global launches
-    if not _build.use_kernel(a, d):
+    if not _build.use_kernel(soft):
+        a, d = branch_sums(soft)
         return decode_plain(a, d, n_bits)
-    T, L = a.shape
+    if soft.dim() != 3 or soft.shape[2] != 2:
+        raise ValueError(f"soft: expected [L, T, 2], got {tuple(soft.shape)}")
+    if soft.dtype != torch.float32:
+        raise TypeError(f"soft: expected torch.float32, got {soft.dtype}")
+    L, T, _ = soft.shape
     if not 0 <= n_bits <= T:
         raise ValueError(f"n_bits {n_bits} outside [0, T={T}]")
-    _build.check(a, "a", torch.float32, (T, L))
-    _build.check(d, "d", torch.float32, (T, L))
-    bits = torch.empty((T, L), dtype=torch.uint8, device=a.device)
+    bits = _launch(soft, *pick(L, T))
     if T and L:
-        dec = torch.empty((T, 2, L), dtype=torch.int32, device=a.device)
-        p = _build.ptr
-        with torch.cuda.device(a.device):
-            err = _entry()(p(a), p(d), T, L, p(dec), p(bits),
-                           _build.stream())
-        _build.raise_on_error(err, "viterbi")
         launches += 1
     return bits[:n_bits].t()
+
+
+def _launch(soft: torch.Tensor, threads: int, shared: bool) -> torch.Tensor:
+    """One launch of the kernel's (threads, shared) instantiation on a
+    checked soft view: bits u8 [T, L] of every step."""
+    L, T, _ = soft.shape
+    bits = torch.empty((T, L), dtype=torch.uint8, device=soft.device)
+    if T and L:
+        dec = None if shared else torch.empty(
+            (T, L), dtype=torch.int64, device=soft.device)
+        p = _build.ptr
+        s_lane, s_step, s_pair = soft.stride()
+        with torch.cuda.device(soft.device):
+            err = _entry()(p(soft), T, L, s_lane, s_step, s_pair, threads,
+                           int(shared), p(dec), p(bits), _build.stream())
+        _build.raise_on_error(err, "viterbi")
+    return bits
