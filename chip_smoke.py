@@ -23,7 +23,8 @@ it builds with nvcc first (one nvcc per source, all at once):
   * BASELINE config 2, Bell-202 BER sweeps at B=4096
     (``sim.ber.ber_sweep`` over ``ModemFarm``, whole signals: K1, K2),
     and after them the TPU's long-chunk route over the same signals:
-    K8 (``csrc/fsk_stage_d.cu``) through its entry point
+    K8 (K2's kernel body in its planes mode, ``csrc/fsk_framing.cu``)
+    through its entry point
     ``fsk_demod.stage_d`` and the masked-sum compaction (no other entry
     point of the port reaches K8; its launches are reported under the
     path "tpu_route (chip_smoke)"); BASELINE config 4 (V.21 full
@@ -105,10 +106,16 @@ Phases:
  15. K8 against its plain version, exactly (planes and carry), with
      compact(K8) equal to K2 and two halves chained through the carry
      equal to one call: the hard bench chunk (n_ds = 2400, B = 4096; K2
-     and K8 timed there in turns), the 128-byte Bell-202 messages at
-     10 dB (n_ds = 26,440, B = 4096; K8's row numbers, the wrapper
-     timed beside the kernel alone), an odd n_ds with syncs, bytes and
-     EODs (B = 1000), and n_ds = 0;
+     and K8 timed there in turns, enqueued and in a CUDA graph, and K8's
+     wrapper profiled: one kernel launch a call, nothing beside it), the
+     128-byte Bell-202 messages at 10 dB (n_ds = 26,440, B = 4096; K8's
+     row numbers, the wrapper timed beside the kernel alone and in a
+     graph), an odd n_ds with syncs, bytes and EODs (B = 1000), and
+     n_ds = 0; then K8 and K2 at ``FRAMING_EDGE_CASES`` on synthetic
+     planes (B = 1001 and 1 with the bits plane one element past
+     alignment, n_ds = 0, 1, 17, a fire in a partial last tile, a counter
+     a few steps below its wrap, sil at 2^24 - 3 on a silent stream, an
+     EOD threshold of 559.3 steps);
  16. BASELINE config 2: Bell-202 sweeps at 30 ... -6 dB, B = 4096, of
      the harness's 4-byte message and a 128-byte one (maxb 148), with
      launches counted (K1 and K2 per point and message); after the
@@ -633,6 +640,11 @@ def phase_timings(device, rng, card):
                 _nbytes(ints, flts, state.bit_fill, bits, amps, ratios,
                         sub_amps[:n], *dout),
                 n * B * K2_OPS_PER_STEP)
+            kernel_ms["fsk_framing"]["graph_ms"] = _graph_ms(
+                lambda: fsk_framing.stage_d_compact(*dargs), 20)
+            print(f"  fsk_framing K2 n_ds={n} B={B} in a CUDA graph (no "
+                  f"host gaps): {kernel_ms['fsk_framing']['graph_ms']:.4f} "
+                  f"ms a call [{card}]")
             for name, t in kernel_ms.items():
                 _print_timing(name, t, card)
     return kernel_ms
@@ -1063,7 +1075,8 @@ def _profile(label, run, calls, wall_ms, card):
     """torch.profiler over ``run()``, which makes ``calls`` calls: device
     time per call by kernel, and the device's busy share of ``wall_ms``,
     the unprofiled time per call (the profiler's own host cost would
-    dilute it)."""
+    dilute it).  Returns the rows (device us, kernel name, launches),
+    longest first; none where the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1088,7 +1101,7 @@ def _profile(label, run, calls, wall_ms, card):
                    and dev_us(e) > 0), reverse=True)
     if not rows:
         print("  profile: the profiler recorded no device time")
-        return
+        return rows
     total_ms = sum(r[0] for r in rows) / 1e3 / calls
     print(f"  profile {label}: device {total_ms:.3f} ms per call, busy "
           f"{100 * total_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms "
@@ -1096,6 +1109,7 @@ def _profile(label, run, calls, wall_ms, card):
     for us, key, count in rows[:12]:
         print(f"    {us / 1e3 / calls:8.4f} ms/call  {count // calls:4d} "
               f"launches  {key[:70]}")
+    return rows
 
 
 def phase_soft_timings(device, rng, card):
@@ -2066,8 +2080,9 @@ GOLDEN_SUBSET = {"short": 64, "long": 8}
 IMPAIR_BATCH = 1024
 CARRIER_OFFSETS_HZ = (0.0, 120.0, 250.0)
 CLOCK_SKEWS = (0.0, 0.002, 0.01)
-# K8 per step: the state machine's ~40 operations and the packing's 6
-K8_OPS_PER_STEP = 46
+# K8 per step: the state machine's ~40 operations (as K2) and the four
+# plane stores
+K8_OPS_PER_STEP = 44
 
 
 def _bell202():
@@ -2113,15 +2128,15 @@ def _route(params, x, per_step):
 
 def _k8_bytes(n_ds, B):
     """Bytes K8 must move: bits bf16, amps, ratios and the delayed amps
-    f32 in, the packed i32 word out, per step and channel; the carry in
-    and out and bit_fill."""
-    return n_ds * B * 18 + B * (2 * (10 + 2) * 4 + 4)
+    f32 in (14 B), the byte value i32 and the three event bools out
+    (7 B), per step and channel; the carry in and out and bit_fill."""
+    return n_ds * B * 21 + B * (2 * (10 + 2) * 4 + 4)
 
 
 def _k8_kernel_only(params, state, planes):
     """A call that launches K8's kernel alone on ``planes`` into outputs
-    made once: no carry build, no unpacking of the packed plane, no
-    launch counted; to time the kernel beside its wrapper."""
+    made once: no carry build, no allocation, no launch counted; to time
+    the kernel beside its wrapper."""
     import ctypes
 
     import torch
@@ -2132,11 +2147,11 @@ def _k8_kernel_only(params, state, planes):
     bits = planes[0]
     n_ds, B = bits.shape
     ints, flts = fsk_demod._framing_carry(params, state)
-    outs = [torch.empty((fsk_framing.N_I32, B), dtype=torch.int32,
-                        device=bits.device),
-            torch.empty((fsk_framing.N_F32, B), dtype=torch.float32,
-                        device=bits.device),
-            torch.empty((n_ds, B), dtype=torch.int32, device=bits.device)]
+    new = dict(device=bits.device)
+    outs = [torch.empty((fsk_framing.N_I32, B), dtype=torch.int32, **new),
+            torch.empty((fsk_framing.N_F32, B), dtype=torch.float32, **new),
+            torch.empty((n_ds, B), dtype=torch.int32, **new),
+            *torch.empty((3, n_ds, B), dtype=torch.bool, **new)]
     p = _build.ptr
     coef = fsk_framing._kernel_coef(params)
     entry = fsk_framing._stage_d_entry()
@@ -2213,14 +2228,187 @@ def _check_k8(params, state, planes, label, need=()):
 
 
 def _time_k8_kernel_only(timing, params, state, planes, reps, card):
-    """Add K8's kernel alone (``kernel_only_ms``) to a timing made of its
-    wrapper (``ms``: the carry, the kernel and the unpacking)."""
+    """Add K8's kernel alone (``kernel_only_ms``, enqueued) and its
+    wrapper and kernel in a CUDA graph (``graph_ms``,
+    ``kernel_only_graph_ms``) to a timing of its wrapper (``ms``: the
+    carry, the allocations and the launch, enqueued one by one)."""
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+
     launch = _k8_kernel_only(params, state, planes)
     launch()
     timing["kernel_only_ms"] = _cuda_ms(launch, reps)
-    print(f"  fsk_stage_d K8 {timing['shape']}: kernel alone "
-          f"{timing['kernel_only_ms']:.4f} ms, wrapper {timing['ms']:.4f} ms "
-          f"[{card}]")
+    timing["graph_ms"] = _graph_ms(
+        lambda: fsk_demod.stage_d(params, state, *planes), reps)
+    timing["kernel_only_graph_ms"] = _graph_ms(launch, reps)
+    print(f"  fsk_stage_d K8 {timing['shape']}: wrapper {timing['ms']:.4f} "
+          f"ms enqueued, {timing['graph_ms']:.4f} in a graph; kernel alone "
+          f"{timing['kernel_only_ms']:.4f} enqueued, "
+          f"{timing['kernel_only_graph_ms']:.4f} in a graph [{card}]")
+
+
+# K2 / K8 edge cases on synthetic planes at the bench configuration:
+# (label, B, n_ds, carry, bits plane one element past alignment, events
+# the case must hold).  Carries: "random" puts every register in range
+# at random (decisions, bytes, EODs and fires within a few steps),
+# "wrap" sets the counter 1-5 steps below ``_wrap(params)`` with the gate
+# open and every ratio above the threshold (each channel fires where the
+# counter wraps to 0), "silent" sets sil at 2^24 - 3 over amplitudes of
+# 0, "eod" makes eod_after 559.3 (its ceiling 560 is the kernels'
+# integer threshold) and sil 1-5 below 560 over amplitudes of 0, so each
+# channel's EOD lands on the step where sil reaches 560.  "last tile" is
+# a fire in the partial last tile of K2_TILE steps.
+FRAMING_EDGE_CASES = (
+    ("B=1001", 1001, 2 * K2_TILE + 5, "random", True,
+     ("bytes", "syncs", "EODs", "last tile")),
+    ("B=1", 1, 2 * K2_TILE + 5, "random", True, ()),
+    ("n_ds=0", 33, 0, "random", False, ()),
+    ("n_ds=1", 33, 1, "random", True, ()),
+    ("n_ds=17", 33, 17, "random", False, ("syncs", "EODs")),
+    ("fire in a partial last tile", 64, 2 * K2_TILE + 5, "random", False,
+     ("syncs", "last tile")),
+    ("counter below its wrap", 33, 2 * K2_TILE + 3, "wrap", True,
+     ("syncs",)),
+    ("sil at 2^24 - 3, silent", 33, K2_TILE + 4, "silent", False,
+     ("EODs",)),
+    ("EOD after 559.3 steps", 33, K2_TILE + 4, "eod", True, ("EODs",)),
+)
+
+
+def _framing_case(case, device):
+    """(params, (ints, flts, bit_fill, bits, amps, ratios, sub_amps)) of
+    ``FRAMING_EDGE_CASES`` entry ``case`` (its label), from a generator
+    seeded by the case's index, so that no other phase's data depend on
+    the cases."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing
+
+    index = next(i for i, c in enumerate(FRAMING_EDGE_CASES)
+                 if c[0] == case)
+    _, B, n, carry, odd_bits, _ = FRAMING_EDGE_CASES[index]
+    rng = np.random.default_rng(100 + index)
+    params = FSKParams.from_config(_bench_config())
+    if carry == "eod":
+        params = dataclasses.replace(params, samples_for_eod=559.3)
+    ds, A = params.ds_samples_per_bit, params.amp_window
+    W, wrap = params.sync_window, fsk_framing._wrap(params)
+    eod = fsk_framing._eod_steps(params)
+
+    def ri(lo, hi):
+        return rng.integers(lo, hi, B)
+
+    bsc = ri(0, 4 * ds)
+    ints = np.stack([
+        ri(0, 2), ri(0, wrap), ri(0, 2 * eod), ri(0, ds), ri(0, ds), bsc,
+        bsc + ri(-3, n + 3), ri(0, 256), ri(0, params.stop_bit_position + 2),
+        ri(0, A + 1)])
+    flts = np.stack([rng.uniform(0.2, 0.8, B),
+                     rng.uniform(0.0, A, B)])
+    bit_fill = ri(W - n - 2, W + 2)
+    bits = rng.integers(0, 2, (n, B))
+    amps = rng.uniform(0.0, 1.0, (n, B))
+    ratios = rng.uniform(0.7, 1.0, (n, B))
+    if carry == "wrap":
+        ints[:] = 0
+        ints[1] = wrap - ri(1, 6)
+        ints[9] = A
+        flts = np.stack([np.full(B, 0.1), np.full(B, float(A))])
+        bit_fill[:] = W
+        amps[:] = 1.0
+        ratios[:] = 0.95
+    elif carry == "silent":
+        ints[2] = 2 ** 24 - 3
+        amps[:] = 0.0
+    elif carry == "eod":
+        ints[2] = eod - ri(1, 6)
+        amps[:] = 0.0
+    sub_amps = rng.uniform(0.0, 1.0, (n + 3, B))
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device)
+    bits_t = f32(bits).to(torch.bfloat16)
+    if odd_bits:
+        flat = torch.zeros(n * B + 1, dtype=torch.bfloat16, device=device)
+        flat[1:] = bits_t.reshape(-1)
+        bits_t = flat[1:].view(n, B)
+    return params, (
+        torch.from_numpy(ints.astype(np.int32)).to(device), f32(flts),
+        torch.from_numpy(bit_fill.astype(np.int32)).to(device), bits_t,
+        f32(amps), f32(ratios), f32(sub_amps))
+
+
+def _framing_check(params, args, label):
+    """K2 and K8 on ``args`` (``_framing_case``'s) against their plain
+    versions, every output exactly; compact(K8) against K2; two halves of
+    K8 chained through the carry against one call.  Returns (the largest
+    difference from plain, the events the plain planes hold: "bytes",
+    "syncs", "EODs" and "last tile", a fire in the last, partial tile of
+    K2_TILE steps)."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_framing
+
+    ints, flts, bit_fill, bits, amps, ratios, sub = args
+    n_ds = bits.shape[0]
+    maxb = fsk_demod.max_bytes(params, n_ds)
+    errs = []
+    k2 = fsk_framing.stage_d_compact(params, *args, maxb)
+    p2 = fsk_framing.stage_d_compact_plain(params, *args, maxb)
+    for name, a, b in zip(("ints", "flts", "bytes_out", "byte_count",
+                           "eod_fired", "sync_fired", "fire_t"), k2, p2):
+        errs.append(_equal_or_raise(f"K2 edge {label} {name}", a, b))
+    (ints8, flts8), k8 = fsk_framing.stage_d(params, *args)
+    (p_ints, p_flts), p8 = fsk_framing.stage_d_plain(params, *args)
+    names = ("byte_vals", "emits", "eods", "fires")
+    for name, a, b in (("ints", ints8, p_ints), ("flts", flts8, p_flts),
+                       *zip(names, k8, p8)):
+        errs.append(_equal_or_raise(f"K8 edge {label} {name}", a, b))
+    for name, a, b in (("ints", ints8, k2[0]), ("flts", flts8, k2[1]),
+                       *zip(("bytes_out", "byte_count", "eod_fired",
+                             "sync_fired", "fire_t"),
+                            fsk_framing.compact(*k8, maxb), k2[2:])):
+        _equal_or_raise(f"compact(K8) vs K2 edge {label} {name}", a, b)
+    if n_ds > 1:
+        h = n_ds // 2 + 1
+        (ints1, flts1), first = fsk_framing.stage_d(
+            params, ints, flts, bit_fill, bits[:h], amps[:h], ratios[:h],
+            sub[:h])
+        (ints2, flts2), second = fsk_framing.stage_d(
+            params, ints1, flts1, bit_fill + h, bits[h:], amps[h:],
+            ratios[h:], sub[h:])
+        for name, a, b, w in zip(names, first, second, k8):
+            _equal_or_raise(f"K8 edge {label} halves {name}",
+                            torch.cat([a, b]), w)
+        _equal_or_raise(f"K8 edge {label} halves ints", ints2, ints8)
+        _equal_or_raise(f"K8 edge {label} halves flts", flts2, flts8)
+    last = (n_ds - 1) // K2_TILE * K2_TILE
+    events = {"bytes": int(p8[1].sum()), "syncs": int(p8[3].sum()),
+              "EODs": int(p8[2].sum()),
+              "last tile": int(p8[3][last:].sum()) if n_ds % K2_TILE else 0}
+    return max(errs), events
+
+
+def _framing_edges(device, errs):
+    """K2 and K8 at every case of ``FRAMING_EDGE_CASES``; raises unless
+    each case holds the events it names."""
+    for case, B, n_ds, _, odd_bits, need in FRAMING_EDGE_CASES:
+        params, args = _framing_case(case, device)
+        assert (args[3].data_ptr() % 4 != 0) == (odd_bits and n_ds > 0)
+        err, events = _framing_check(params, args, case)
+        errs.append(err)
+        missing = [k for k in need if not events[k]]
+        if missing:
+            raise RuntimeError(f"framing edge {case}: no {missing}")
+        print(f"  K2 / K8 edge {case} (B={B}, n_ds={n_ds}"
+              f"{', bits one element past alignment' if odd_bits else ''})"
+              ": identical to plain, compact(K8) == K2, halves == whole; "
+              + ", ".join(f"{k} {v}" for k, v in events.items()))
 
 
 def phase_k8_vs_plain(device, rng, card):
@@ -2255,9 +2443,13 @@ def phase_k8_vs_plain(device, rng, card):
     for _, fn in turns:
         fn()
     out["bench_turns_ms"] = [(label, _cuda_ms(fn, 20)) for label, fn in turns]
-    print(f"  n_ds={n} B={MAIN_BATCH}, K2 and K8 in turns: "
-          + ", ".join(f"{label} {ms:.4f}" for label, ms in
-                      out["bench_turns_ms"]) + f" ms [{card}]")
+    out["bench_turns_graph_ms"] = [(label, _graph_ms(fn, 20))
+                                   for label, fn in turns]
+    for key, how in (("bench_turns_ms", "enqueued"),
+                     ("bench_turns_graph_ms", "in a CUDA graph")):
+        print(f"  n_ds={n} B={MAIN_BATCH}, K2 and K8 in turns, {how}: "
+              + ", ".join(f"{label} {ms:.4f}" for label, ms in out[key])
+              + f" ms [{card}]")
     out["bench"] = _timing(
         f"n_ds={n} B={MAIN_BATCH} (bench chunk, mean of the K8 turns)",
         sum(ms for label, ms in out["bench_turns_ms"] if label == "K8") / 2,
@@ -2265,6 +2457,27 @@ def phase_k8_vs_plain(device, rng, card):
         n * MAIN_BATCH * K8_OPS_PER_STEP)
     _print_timing("fsk_stage_d K8", out["bench"], card)
     _time_k8_kernel_only(out["bench"], params, state, planes, 20, card)
+    # K8's wrapper is one launch (its counter) and nothing else: the
+    # entry point's kernels (profiler) are the carry's (``_framing_carry``)
+    # and K8's, no unpacking
+    def launched(label, run):
+        return {key: n for _, key, n in _profile(
+            label, lambda: [run() for _ in range(5)], 5, out["bench"]["ms"],
+            card)}
+    before = fsk_framing.stage_d_launches
+    entry = launched("fsk_demod.stage_d (K8) x 5",
+                     lambda: fsk_demod.stage_d(params, state, *planes))
+    if fsk_framing.stage_d_launches != before + 5:
+        raise RuntimeError("fsk_demod.stage_d: not one K8 launch a call")
+    carry = launched("fsk_demod._framing_carry x 5",
+                     lambda: fsk_demod._framing_carry(params, state))
+    beside = sorted(set(entry) - set(carry))
+    if entry and (len(beside) != 1 or "fsk_framing_kernel" not in beside[0]):
+        raise RuntimeError(f"fsk_demod.stage_d launched {beside} beside "
+                           "the carry's kernels, not K8 alone")
+    print("  K8's entry point: one K8 launch a call (counter); kernels "
+          "beside the carry's: "
+          f"{beside or 'none recorded by the profiler'}")
 
     # the long BER planes: 128-byte Bell-202 messages at 10 dB
     params = FSKParams.from_config(_bell202())
@@ -2300,6 +2513,7 @@ def phase_k8_vs_plain(device, rng, card):
     z = torch.zeros((0, B), device=device)
     errs.append(_check_k8(params, state,
                           (z.bfloat16(), z, z, state.amp_tail), "empty")[1])
+    _framing_edges(device, errs)
     out["max_abs_err"] = max(errs)
     print(f"  K8 launched {fsk_framing.stage_d_launches - launches0} times "
           "in these comparisons (not counted for the path)")
@@ -2594,11 +2808,16 @@ def main() -> int:
     import numpy as np
     import torch
 
+    from webaudio_modem_tpu_torch.ops import fsk_demod
     from webaudio_modem_tpu_torch.ops.kernels import _build
     from webaudio_modem_tpu_torch.utils.device import require_cuda
 
     print("phase 1: device")
     device, card = require_cuda()
+    # the facades would build the quality calibration on a host thread
+    # (K1's plain version over a clean frame) beside the timed phases;
+    # the CPU tests drive that path
+    fsk_demod.AUTO_WARM_QUALITY = False
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"  {card}")
@@ -2707,7 +2926,10 @@ def main() -> int:
                      for k in ("shape", "ms", "plain_ms", "bound_ms",
                                "bound_by")}}}),
         row("fsk_framing", "fsk_framing.cu", "fsk_framing.py:208",
-            kernel_ms["fsk_framing"], {}),
+            kernel_ms["fsk_framing"],
+            {"graph_ms": kernel_ms["fsk_framing"]["graph_ms"],
+             "k8_bench_turns_ms": {"enqueued": k8["bench_turns_ms"],
+                                   "graph": k8["bench_turns_graph_ms"]}}),
         row("viterbi", "viterbi.cu", "viterbi.py:82", soft["viterbi_header"],
             {**others("viterbi_body", "viterbi_payload-100"),
              "graph_ms": {n: soft[f"viterbi_{n}"]["graph_ms"]
@@ -2741,13 +2963,16 @@ def main() -> int:
              "blind_programs_ms": {k: blind[k] for k in (
                  "detector_ms", "header_prog_ms", "body_prog_ms")},
              "blind_main_path": blind_out}),
-        row("fsk_stage_d", "fsk_stage_d.cu", "fsk_framing.py:47",
+        row("fsk_stage_d", "fsk_framing.cu", "fsk_framing.py:47",
             k8["timing"],
-            {"kernel_only_ms": k8["timing"]["kernel_only_ms"],
+            {**{k: k8["timing"][k] for k in (
+                "graph_ms", "kernel_only_ms", "kernel_only_graph_ms")},
              "other_shapes": [{k: k8["bench"][k] for k in (
-                 "shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")}],
+                 "shape", "ms", "graph_ms", "kernel_only_ms",
+                 "kernel_only_graph_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}],
              "bench_turns_ms": k8["bench_turns_ms"],
+             "bench_turns_graph_ms": k8["bench_turns_graph_ms"],
              "ber_main_path": ber_out,
              "v21_impairments_checkpoints": slice_out}),
     ]

@@ -10,6 +10,8 @@ differently, so it is compared on its own (rtol 1e-6) and both runs
 then start from the reference's value.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -123,3 +125,26 @@ def test_plain_matches_lax_beyond_slot_bound():
     port = _port_run(pp, jp, jstate, bits, amps, ratios, ext_amps, maxb)
     _check(port, carry, bytes_r, count_r, eods.astype(jnp.int32).sum(0),
            fires.astype(jnp.int32).sum(0), fire_t_r)
+
+
+@pytest.mark.parametrize("eod_after", [560.0, 559.3, 1.0, 0.5,
+                                       2.0 ** 24 - 1.5])
+def test_eod_steps_equals_the_float_compare(eod_after):
+    """The kernels' ``sil1 >= eod_steps`` (eod_steps the ceiling of the
+    f32 eod_after) decides as the plain version's ``float(sil1) >=
+    eod_after`` for sil1 around the threshold and at the ends of int32."""
+    _, _, pp, _ = configs()
+    params = dataclasses.replace(pp, samples_for_eod=eod_after)
+    n = port_framing._eod_steps(params)
+    thr = np.float32(eod_after)
+    sil = np.array([0, 1, n - 2, n - 1, n, n + 1, 2 ** 24 - 1, 2 ** 24,
+                    2 ** 24 + 1, 2 ** 31 - 1], np.int64)
+    sil = sil[(sil >= 0) & (sil < 2 ** 31)].astype(np.int32)
+    np.testing.assert_array_equal(sil >= n, sil.astype(np.float32) >= thr)
+
+
+def test_eod_steps_refuses_the_float_limit():
+    _, _, pp, _ = configs()
+    params = dataclasses.replace(pp, samples_for_eod=2.0 ** 24 + 1)
+    with pytest.raises(ValueError, match="2\\^24"):
+        port_framing._eod_steps(params)

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1 / K7, K2, K8, K6, K5, K3 and K4 built for the CPU with g++
+"""The CUDA sources of K1 / K7, K2 / K8, K6, K5, K3 and K4 built for the CPU with g++
 over a host emulation of CUDA (``host_cuda/``), against their plain
 versions, through the port's own wrappers.
 
@@ -48,8 +48,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 import chip_smoke as cs  # noqa: E402  (the card's edge cases, shared)
 
 HOST = Path(__file__).resolve().parent / "host_cuda"
-NAMES = ("fsk_seq", "fsk_framing", "fsk_stage_d", "psk_seq", "cumsum0",
-         "viterbi", "align")
+NAMES = ("fsk_seq", "fsk_framing", "psk_seq", "cumsum0", "viterbi",
+         "align")
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?(?:\[[^\]]+\])?)\s*<<<(.*?)>>>\s*\(",
                     re.S)
 SHARED = re.compile(r"extern __shared__ ([\w ]+?)\s+(\w+)\[\];")
@@ -255,6 +255,28 @@ def test_k2_k8_exact(on_host, B, T):
                                             ds_acc=acc)
         ds_phase = (ds_phase + x.shape[1]) % params.downsample_ratio
     assert fires == B and n_bytes == 2 * B
+
+
+@pytest.mark.parametrize("case", [c[0] for c in cs.FRAMING_EDGE_CASES])
+def test_k2_k8_edges(on_host, case):
+    """K2 and K8 (the two output modes of fsk_framing.cu) equal their
+    plain versions exactly at ``chip_smoke.FRAMING_EDGE_CASES``, which
+    the card holds too: B = 1001 and 1 with the bits plane one element
+    past alignment, n_ds = 0, 1 and 17, a fire in a partial last tile, a
+    counter a few steps below its wrap (the carried quarter phase), sil
+    at 2^24 - 3 on a silent stream and an EOD after 559.3 steps (the
+    integer EOD compare against its ceiling); compact(K8)
+    equals K2 and two halves chained through the carry equal one call.
+    Each wrapper launches once a call."""
+    params, args = cs._framing_case(case, torch.device("cpu"))
+    need = next(c[5] for c in cs.FRAMING_EDGE_CASES if c[0] == case)
+    before = (fsk_framing.launches, fsk_framing.stage_d_launches)
+    err, events = cs._framing_check(params, args, case)
+    halves = 2 if args[3].shape[0] > 1 else 0
+    assert (fsk_framing.launches, fsk_framing.stage_d_launches) == (
+        before[0] + 1, before[1] + 1 + halves)
+    assert err == 0.0
+    assert all(events[k] for k in need), events
 
 
 def _flat(out):

@@ -105,11 +105,12 @@ def test_configure_from_dict_and_slice_e_options():
 
 def test_configure_warms_the_calibration(monkeypatch):
     """With AUTO_WARM_QUALITY, configure() builds the quality calibration
-    on a background thread; the build is the lru-cached one."""
+    on a background thread; the build is the lru-cached one, keyed by
+    (params, family) as the reference's."""
     monkeypatch.setattr(fsk_demod, "AUTO_WARM_QUALITY", True)
     monkeypatch.setattr(fsk_demod, "_warm_started", set())
     fsk_demod._quality_calibration.cache_clear()
     core = SoftModemCore(CONFIG, device="cpu")
     fsk_demod._join_warm_threads()
     assert fsk_demod._quality_calibration.cache_info().currsize == 1
-    assert core.params in fsk_demod._warm_started
+    assert (core.params, "fsk") in fsk_demod._warm_started

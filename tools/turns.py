@@ -10,12 +10,17 @@ Each LABEL=DIR turn runs in its own process, importing that checkout's
 kernels).  Turns in one call on one card are what two versions may be
 compared by.  WHAT is one of:
 
-* ``framing`` — on the second 0.1 s chunk of 4096 distinct 13-byte
-  messages at the hard bench configuration (300 baud, n_ds = 2400), as
-  ``chip_smoke.py`` phase 5 times K2: K2 (``stage_d_compact``) five
-  times over 20 launches between two CUDA events, and K8 (``stage_d``)
-  where the checkout has it.  It prints a hash of K2's outputs, so the
-  turns also show whether two checkouts' K2 compute the same bytes.
+* ``framing`` — K2 (``stage_d_compact``) and K8 (``fsk_demod.stage_d``,
+  the wrapper, and ``chip_smoke._k8_kernel_only``, its kernel alone) on
+  the planes ``chip_smoke.py`` phase 15 times them on: the second 0.1 s
+  chunk of 4096 distinct 13-byte messages at the hard bench
+  configuration (300 baud, n_ds = 2400), and K8 also on 4096 128-byte
+  Bell-202 messages at 10 dB (n_ds = 26,440, the reference's noise from
+  ``sim.ber.noisy_batch``).  Each five times over 20 launches between
+  two CUDA events (enqueued one by one) and three times over 20
+  launches captured in a CUDA graph (device time without host gaps).
+  It prints a hash of K2's and of K8's outputs (carry and planes), so
+  the turns also show whether two checkouts compute the same.
 * ``seq`` — the sequential-DSP kernels and the hard chunk step, on the
   inputs ``chip_smoke.py`` times them on: K1 with all streams on the
   second 0.1 s chunk of 4096 distinct 13-byte messages at the hard bench
@@ -81,37 +86,63 @@ TURNS = {
     "framing": r"""
 from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops import fsk_mod
-from webaudio_modem_tpu_torch.ops.kernels import fsk_framing, fsk_seq
-params = FSKParams.from_config(cs._bench_config())
+from webaudio_modem_tpu_torch.ops.kernels import fsk_framing
+from webaudio_modem_tpu_torch.sim import ber
+
+
+def digest(out):
+    h = hashlib.sha256()
+    todo = [out]
+    while todo:
+        o = todo.pop(0)
+        if isinstance(o, (tuple, list)):
+            todo[:0] = list(o)
+        else:
+            h.update(o.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def timed(name, fn, n, out=None):
+    for _ in range(3):
+        fn()
+    ms = [cs._cuda_ms(fn, 20) for _ in range(5)]
+    graph = [cs._graph_ms(fn, 20) for _ in range(3)]
+    print(f"turn {sys.argv[2]} {name} n_ds={n} B={B}: enqueued "
+          f"{', '.join(f'{m:.4f}' for m in ms)}; graph "
+          f"{', '.join(f'{m:.4f}' for m in graph)} ms per launch"
+          + (f"; outputs sha256 {digest(out)}" if out is not None else ""),
+          flush=True)
+
+
 B = 4096
+params = FSKParams.from_config(cs._bench_config())
 sig = fsk_mod.modulate_batch(
     params, cs._messages(np.random.default_rng(5), B, 13), dev)
 state, _ = fsk_demod.demod_chunk(
     params, 0, fsk_demod.init_state(params, B, dev), sig[:, :cs.CHUNK])
-ds = params.ds_samples_per_bit
-_, _, bits, amps, _, rsum = fsk_seq.seq(
-    params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
-    sig[:, cs.CHUNK:2 * cs.CHUNK].t().contiguous())
-ratios = fsk_demod._sync_ratios_from_r(params, state.r_tail, rsum)
+planes = cs._stage_d_inputs(params, state,
+                            sig[:, cs.CHUNK:2 * cs.CHUNK].t().contiguous())
+n = planes[0].shape[0]
 ints, flts = fsk_demod._framing_carry(params, state)
-n = bits.shape[0]
-planes = (bits, amps, ratios, torch.cat([state.amp_tail, amps]))
 args = (params, ints, flts, state.bit_fill, *planes,
         fsk_demod.max_bytes(params, n))
-out = fsk_framing.stage_d_compact(*args)
-digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
-                                 for t in out)).hexdigest()[:16]
-kernels = {"K2": lambda: fsk_framing.stage_d_compact(*args)}
-if hasattr(fsk_framing, "stage_d"):
-    kernels["K8"] = lambda: fsk_demod.stage_d(params, state, *planes)
-for name, fn in kernels.items():
-    for _ in range(3):
-        fn()
-    ms = [cs._cuda_ms(fn, 20) for _ in range(5)]
-    print(f"turn {sys.argv[2]} {name} n_ds={n} B={B}: "
-          f"{', '.join(f'{m:.4f}' for m in ms)} ms per launch"
-          + (f"; K2 outputs sha256 {digest}" if name == "K2" else ""),
-          flush=True)
+timed("K2", lambda: fsk_framing.stage_d_compact(*args), n,
+      fsk_framing.stage_d_compact(*args))
+timed("K8", lambda: fsk_demod.stage_d(params, state, *planes), n,
+      fsk_demod.stage_d(params, state, *planes))
+timed("K8 kernel alone", cs._k8_kernel_only(params, state, planes), n)
+del sig, planes
+
+params = FSKParams.from_config(cs._bell202())
+clean = ber.clean_signal(cs._bell202(), cs.BER_MESSAGES["long"])
+x = torch.from_numpy(ber.noisy_batch(clean, 10.0, B)).to(dev)
+state = fsk_demod.init_state(params, B, dev)
+planes = cs._stage_d_inputs(params, state, x.t().contiguous())
+del x
+n = planes[0].shape[0]
+timed("K8", lambda: fsk_demod.stage_d(params, state, *planes), n,
+      fsk_demod.stage_d(params, state, *planes))
+timed("K8 kernel alone", cs._k8_kernel_only(params, state, planes), n)
 """,
     "seq": r"""
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams

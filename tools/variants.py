@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Variants of one kernel source, built side by side and timed in turns.
 
-    python3 tools/variants.py k3|k4|k5|k6 LABEL=DIR [LABEL=DIR ...]
+    python3 tools/variants.py k3|k4|k5|k6|k8 LABEL=DIR [LABEL=DIR ...]
 
 For each checkout DIR it builds copies of one kernel (with the ``csrc/``
 headers beside it), each with a few lines of its source replaced or
@@ -43,6 +43,24 @@ checkout's wrapper, so the C interface must be this one's.
   windows of the soft decode, each the best of three runs of 20 launches
   in a CUDA graph, with the byte bound (``_align_bytes`` at 3.35 TB/s)
   and the outputs' equality with the as-built build.
+* ``k8`` — the framing kernels, K2 and K8 (the two output modes of
+  ``csrc/fsk_framing.cu``), on the bench chunk's planes (``tools/turns.py
+  framing``'s: n_ds = 2400, B = 4096): the step's changes reverted one by
+  one (the counter's remainder by quarter in place of the carried phase,
+  the float EOD compare in place of the integer one, both: the parent's
+  step), a copy warp a block (K5's producer) in place of each lane's
+  copies, the copies issued inside the step loop, the copy depth
+  ``kAhead``, the step loop's unrolling, K8's planes staged in shared
+  memory a tile at a time and drained with 16-byte stores, and
+  knockouts (no plane stores, no input copies, neither),
+  each the best of three runs of 20 launches in a CUDA graph, with a
+  hash of its outputs; every build also in a twin whose threads read
+  ``clock64()`` around the time loop, for the cycles a step (median and
+  largest over the channels).  The last checkout's source is varied;
+  each earlier checkout is one of the parent's layout (K2 in
+  ``fsk_framing.cu`` and K8 in ``fsk_stage_d.cu`` with the packed word,
+  the EOD compare's float in the coefficients), timed and profiled
+  alike through its own C entries.
 * ``k5`` — design variants of K5 (``csrc/cumsum0.cu``): the number of
   stages and rows per stage, an L2 prefetch size on the 16-byte copies,
   streaming stores, the consumer's unrolling.  Inputs: normal random
@@ -210,8 +228,392 @@ K3_MORE_SHAPES = (
     *((f"{L} header candidates", L, 38, "header")
       for L in (4096, 6144, 8192, 16384)),
 )
+# K8 / K2: the step's changes reverted, copy depth, unrolling, staged
+# plane stores, knockouts; "clock64" adds the time loop's cycles of each
+# thread to ints_out[0] (started: outputs wrong, the profile's twin)
+K8_CLOCK = [
+    ("fsk_framing.cu",
+     r"(\n  const int n_tiles = \(n_ds \+ kTile - 1\) / kTile;)",
+     "\\1\n  const long long wam_t0 = clock64();"),
+    ("fsk_framing.cu", r"(\n\s*sink\.close\(out, b\);)",
+     "\\1\n  ints_out[b] = static_cast<int>(clock64() - wam_t0);"),
+]
+K8_REVERT_PHASE = ("framing_step.cuh", r"phase1 == 0 &&",
+                   "counter1 % c.quarter == 0 &&")
+# exact where eod_after is an integer (the bench's 560.0): the parent's
+# conversion and float compare on the chain
+K8_REVERT_EOD = ("framing_step.cuh", r"sil1 >= c\.eod_steps;",
+                 "static_cast<float>(sil1) >= "
+                 "static_cast<float>(c.eod_steps);")
+# K8's planes staged in shared memory a tile at a time, drained after it
+# by the stepping warp with 16-byte stores where B allows (a multiple of
+# 16 and a whole block), else a lane's own column
+K8_STAGED = [
+    ("fsk_framing.cu", r"(      sink\.put\(out, t, i, ev\);\n    \})",
+     """      if constexpr (kStaged<Sink>) {
+        st_vals[u][lane] = ev.byte_val;
+        st_flags[0][u][lane] = ev.emit;
+        st_flags[1][u][lane] = ev.eod;
+        st_flags[2][u][lane] = ev.fire;
+      } else {
+        sink.put(out, t, i, ev);
+      }
+    }
+    if constexpr (kStaged<Sink>) {
+      __syncwarp(__activemask());
+      const int b0 = blockIdx.x * kThreads;
+      const size_t row0 = static_cast<size_t>(k * kTile) * Bs + b0;
+      if (B % 16 == 0 && b0 + kThreads <= B) {
+        for (int q = lane; q < m * 8; q += kThreads) {
+          const int u = q / 8, c4 = q % 8;
+          *reinterpret_cast<uint4*>(sink.byte_vals + row0 + u * Bs + 4 * c4) =
+              *reinterpret_cast<const uint4*>(&st_vals[u][4 * c4]);
+        }
+        for (int q = lane; q < 3 * m * 2; q += kThreads) {
+          const int f = q / (2 * m), u = (q / 2) % m, h = q % 2;
+          bool* plane = f == 0 ? sink.emits : f == 1 ? sink.eods : sink.fires;
+          *reinterpret_cast<uint4*>(plane + row0 + u * Bs + 16 * h) =
+              *reinterpret_cast<const uint4*>(&st_flags[f][u][16 * h]);
+        }
+      } else {
+        for (int u = 0; u < m; ++u) {
+          const size_t i = row0 + u * Bs + lane;
+          sink.byte_vals[i] = st_vals[u][lane];
+          sink.emits[i] = st_flags[0][u][lane];
+          sink.eods[i] = st_flags[1][u][lane];
+          sink.fires[i] = st_flags[2][u][lane];
+        }
+      }
+      __syncwarp(__activemask());
+    }"""),
+    ("fsk_framing.cu", r"(  extern __shared__ unsigned char smem\[\];)",
+     """\\1
+  __shared__ __align__(16) int st_vals[kTile][kThreads];
+  __shared__ __align__(16) unsigned char st_flags[3][kTile][kThreads];"""),
+    ("fsk_framing.cu", r"(template <class Sink>\n__global__)",
+     """template <class Sink>
+constexpr bool kStaged = sizeof(Sink) == sizeof(Planes);
+
+\\1"""),
+]
+# a copy warp a block (K5's producer): warp 1 copies the next tiles with
+# 16-byte cp.async (4-byte where a row is not aligned; the bits' words
+# at any offset), warp 0 steps; tiles handed over through named barriers
+K8_COPYWARP_CONSTS = """\
+constexpr int kLanes = 32;    // channels a block, one stepping lane each
+constexpr int kThreads = 64;  // warp 0 runs the steps, warp 1 copies
+constexpr int kTile = 16;     // steps per tile
+constexpr int kAhead = 2;     // tiles copied ahead of the one stepped
+constexpr int kSlots = kAhead + 1;
+// the 4-byte words that hold a row's 32 bf16 bits at any offset
+constexpr int kBitWords = kLanes / 2 + 1;
+// a slot: amps, ratios, delayed amps f32 [3][kTile][kLanes], then the
+// bits' words [kTile][kBitWords]; 7232 bytes, a multiple of 16
+constexpr int kSlotWords = 3 * kTile * kLanes + kTile * kBitWords;
+constexpr size_t kSmem = sizeof(unsigned) * kSlots * kSlotWords;
+
+// named barriers 1 .. 2 * kSlots
+__device__ __forceinline__ int full(int s) { return 1 + s; }
+__device__ __forceinline__ int empty(int s) { return 1 + kSlots + s; }
+static_assert(2 * kSlots <= 15, "named barrier ids");
+
+"""
+K8_COPYWARP_KERNEL = """\
+template <class Sink>
+__global__ void __launch_bounds__(kThreads)
+fsk_framing_kernel(const __nv_bfloat16* __restrict__ bits,
+                   const float* __restrict__ amps,
+                   const float* __restrict__ ratios,
+                   const float* __restrict__ sub_amps, int n_ds, int B,
+                   const int* __restrict__ ints_in,
+                   const float* __restrict__ flts_in,
+                   const int* __restrict__ bit_fill,
+                   int* __restrict__ ints_out, float* __restrict__ flts_out,
+                   const Sink sink, const FskFramingCoef c) {
+  // [kSlots][kSlotWords]; the dynamic shared memory base is 16-byte
+  // aligned, so is every 4-channel piece of an f32 row
+  extern __shared__ unsigned char smem[];
+  unsigned* const sm = reinterpret_cast<unsigned*>(smem);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b0 = blockIdx.x * kLanes;
+  const int n_live = min(kLanes, B - b0);
+  const size_t Bs = static_cast<size_t>(B);
+  const int n_tiles = (n_ds + kTile - 1) / kTile;
+
+  if (warp == 1) {
+    // lane: f32 piece lane % 8 (4 channels, 16 bytes) of every 4th row
+    // from lane / 8; bit words flattened over the tile's rows
+    const int piece = lane % 8;
+    const int cp = b0 + 4 * piece;
+    auto copy_tile = [&](int k) {
+      if (k < n_tiles) {
+        unsigned* slot = sm + (k % kSlots) * kSlotWords;
+        const int t0 = k * kTile;
+        const int m = min(kTile, n_ds - t0);
+        for (int p = 0; p < 3; ++p) {
+          const float* plane = p == 0 ? amps : p == 1 ? ratios : sub_amps;
+          for (int u = lane / 8; u < m && cp < B; u += 4) {
+            const float* src = plane + static_cast<size_t>(t0 + u) * Bs + cp;
+            unsigned* dst = slot + (p * kTile + u) * kLanes + 4 * piece;
+            if (cp + 4 <= B && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+              wam::cp_async16(dst, src);
+            } else {
+              for (int e = 0; e < 4 && cp + e < B; ++e)
+                wam::cp_async4(dst + e, src + e);
+            }
+          }
+        }
+        unsigned* words = slot + 3 * kTile * kLanes;
+        for (int q = lane; q < m * kBitWords; q += 32) {
+          const int u = q / kBitWords, w = q % kBitWords;
+          const char* row = reinterpret_cast<const char*>(
+              bits + static_cast<size_t>(t0 + u) * Bs + b0);
+          const int odd = static_cast<int>(
+              (reinterpret_cast<uintptr_t>(row) >> 1) & 1);
+          if (2 * w < odd + n_live)   // word w holds a live channel's bit
+            wam::cp_async4(words + u * kBitWords + w, row - 2 * odd + 4 * w);
+        }
+      }
+      wam::cp_async_commit();
+    };
+    for (int k = 0; k < kAhead; ++k) copy_tile(k);
+    for (int k = 0; k < n_tiles; ++k) {
+      // groups 0..k have landed once at most kAhead - 1 are pending
+      wam::cp_async_wait<kAhead - 1>();
+      wam::bar_arrive(full(k % kSlots), kThreads);
+      // tile k + kAhead goes into the slot tile k - 1 held
+      const int ahead = k + kAhead;
+      if (ahead < n_tiles && ahead >= kSlots)
+        wam::bar_sync(empty(ahead % kSlots), kThreads);
+      copy_tile(ahead);
+    }
+    return;
+  }
+
+  // lanes past B step on whatever the slots hold and store nothing, so
+  // that every barrier sees the whole warp
+  const int b = b0 + lane;
+  const bool live = lane < n_live;
+  wam::FramingCarry s = {};
+  int fill0 = 0;
+  typename Sink::Lane out = {};
+  if (live) {
+    s = wam::framing_load(ints_in, flts_in, Bs, b, c);
+    fill0 = bit_fill[b];
+    out = sink.open(b);
+  }
+  // the element offset of bits[0] within its 4-byte word (0 or 1)
+  const size_t bits_odd = (reinterpret_cast<size_t>(bits) >> 1) & 1;
+
+  for (int k = 0; k < n_tiles; ++k) {
+    const int sl = k % kSlots;
+    wam::bar_sync(full(sl), kThreads);
+    const unsigned* src = sm + sl * kSlotWords + lane;
+    const unsigned short* halves = reinterpret_cast<const unsigned short*>(
+        sm + sl * kSlotWords + 3 * kTile * kLanes);
+    const int m = min(kTile, n_ds - k * kTile);
+    // unrolled, so that a step's shared-memory loads go out under the
+    // steps before it (PERF.md)
+#pragma unroll 8
+    for (int u = 0; u < m; ++u) {
+      const int t = k * kTile + u;
+      const size_t i = static_cast<size_t>(t) * Bs + b;
+      const int odd = static_cast<int>((bits_odd + i - lane) & 1);
+      // a bf16's bits are the top half of its f32
+      const float bit_f = __uint_as_float(
+          static_cast<unsigned>(halves[2 * u * kBitWords + odd + lane]) << 16);
+      const bool gate = fill0 + (t + 1) >= c.sync_window;
+      const wam::FramingEvents ev = wam::framing_step(
+          s, __uint_as_float(src[(0 * kTile + u) * kLanes]),
+          __uint_as_float(src[(2 * kTile + u) * kLanes]),
+          __uint_as_float(src[(1 * kTile + u) * kLanes]),
+          static_cast<int>(bit_f), gate, c);
+      if (live) sink.put(out, t, i, ev);
+    }
+    if (k + kSlots < n_tiles) wam::bar_arrive(empty(sl), kThreads);
+  }
+
+  if (live) {
+    wam::framing_store(s, ints_out, flts_out, Bs, b);
+    sink.close(out, b);
+  }
+}
+
+"""
+K8_COPYWARP = [
+    ("fsk_framing.cu", r"(?s)constexpr int kThreads = 32;.*?"
+     r"constexpr int kSlotWords = 4 \* kTile \* kThreads;\n\n",
+     K8_COPYWARP_CONSTS),
+    ("fsk_framing.cu",
+     r"(?s)template <class Sink>\n__global__.*?\n\}\n\n"
+     r"(?=template <class Sink>\nint launch)", K8_COPYWARP_KERNEL),
+    ("fsk_framing.cu", r"const int blocks = \(B \+ kThreads - 1\) / kThreads;"
+     r"\n  const size_t smem = [^;]+;[^\n]*",
+     "const int blocks = (B + kLanes - 1) / kLanes;\n"
+     "  const size_t smem = kSmem;"),
+    ("fsk_framing.cu", r"#include <cuda_bf16.h>\n",
+     "#include <cuda_bf16.h>\n#include <stdint.h>\n"),
+]
+# the next tiles' copies issued inside the step loop, a step's four
+# under each step's chain, in place of a tile's at once before it
+K8_INLOOP = ("fsk_framing.cu",
+             r"(?s)  const int n_tiles = .*?\n(?=\n  wam::framing_store)",
+             """  const int n_tiles = (n_ds + kTile - 1) / kTile;
+  // step t's four words into slot (t / kTile) % kSlots
+  auto copy_step = [&](int t, size_t i) {
+    unsigned* dst = sm + ((t / kTile) % kSlots) * kSlotWords +
+                    (t % kTile) * kThreads + lane;
+    wam::cp_async4(dst + 0 * kTile * kThreads, amps + i);
+    wam::cp_async4(dst + 1 * kTile * kThreads, ratios + i);
+    wam::cp_async4(dst + 2 * kTile * kThreads, sub_amps + i);
+    wam::cp_async4(dst + 3 * kTile * kThreads,
+                   bits + i - ((bits_odd + i) & 1));
+  };
+  for (int k = 0; k < kAhead; ++k) {
+    for (int t = k * kTile; t < min(n_ds, (k + 1) * kTile); ++t)
+      copy_step(t, static_cast<size_t>(t) * Bs + b);
+    wam::cp_async_commit();
+  }
+  const size_t ahead = static_cast<size_t>(kAhead * kTile) * Bs;
+  for (int k = 0; k < n_tiles; ++k) {
+    wam::cp_async_wait<kAhead - 1>();
+    const unsigned* src = sm + (k % kSlots) * kSlotWords + lane;
+    const int m = min(kTile, n_ds - k * kTile);
+#pragma unroll 4
+    for (int u = 0; u < m; ++u) {
+      const int t = k * kTile + u;
+      const size_t i = static_cast<size_t>(t) * Bs + b;
+      if (t + kAhead * kTile < n_ds) copy_step(t + kAhead * kTile, i + ahead);
+      const unsigned word = src[(3 * kTile + u) * kThreads];
+      const float bit_f = __uint_as_float(
+          ((bits_odd + i) & 1 ? word >> 16 : word & 0xFFFFu) << 16);
+      const bool gate = fill0 + (t + 1) >= c.sync_window;
+      const wam::FramingEvents ev = wam::framing_step(
+          s, __uint_as_float(src[(0 * kTile + u) * kThreads]),
+          __uint_as_float(src[(2 * kTile + u) * kThreads]),
+          __uint_as_float(src[(1 * kTile + u) * kThreads]),
+          static_cast<int>(bit_f), gate, c);
+      sink.put(out, t, i, ev);
+    }
+    wam::cp_async_commit();
+  }
+""")
+
+
+def _unroll(u):
+    return ("fsk_framing.cu",
+            r"#pragma unroll \d+(?=\n    for \(int u = 0; u < m; \+\+u\) "
+            r"\{\n      const int t)", f"#pragma unroll {u}")
+
+
+# the copy loop of a tile (as built: its pointers step a row, unrolled by
+# 4): each row's index computed, that loop unrolled whole for a full
+# tile, or another unrolling
+_K8_COPY_LOOP = (r"(?s)      const size_t i0 = static_cast<size_t>\(k \* kTile\)"
+                 r" \* Bs \+ b;\n.*?\n      \}\n(?=    \}\n)")
+# the copy loop before: each row's index a 64-bit product
+K8_COPY_INDEXED = ("fsk_framing.cu", _K8_COPY_LOOP, """\
+      for (int u = 0; u < m; ++u) {
+        const size_t i = static_cast<size_t>(k * kTile + u) * Bs + b;
+        wam::cp_async4(dst + (0 * kTile + u) * kThreads, amps + i);
+        wam::cp_async4(dst + (1 * kTile + u) * kThreads, ratios + i);
+        wam::cp_async4(dst + (2 * kTile + u) * kThreads, sub_amps + i);
+        wam::cp_async4(dst + (3 * kTile + u) * kThreads,
+                       bits + i - ((bits_odd + i) & 1));
+      }
+""")
+K8_COPY_FULL = ("fsk_framing.cu", _K8_COPY_LOOP, """\
+      auto copy_step = [&](int u) {
+        const size_t i = static_cast<size_t>(k * kTile + u) * Bs + b;
+        wam::cp_async4(dst + (0 * kTile + u) * kThreads, amps + i);
+        wam::cp_async4(dst + (1 * kTile + u) * kThreads, ratios + i);
+        wam::cp_async4(dst + (2 * kTile + u) * kThreads, sub_amps + i);
+        wam::cp_async4(dst + (3 * kTile + u) * kThreads,
+                       bits + i - ((bits_odd + i) & 1));
+      };
+      if (m == kTile) {
+#pragma unroll
+        for (int u = 0; u < kTile; ++u) copy_step(u);
+      } else {
+        for (int u = 0; u < m; ++u) copy_step(u);
+      }
+""")
+def _copy_strided(unroll):
+    return ("fsk_framing.cu", _K8_COPY_LOOP, """\
+      const size_t i0 = static_cast<size_t>(k * kTile) * Bs + b;
+      const float* a = amps + i0;
+      const float* r = ratios + i0;
+      const float* sa = sub_amps + i0;
+      size_t odd = (bits_odd + i0) & 1;
+      const __nv_bfloat16* bw = bits + i0 - odd;
+      const size_t flip = Bs & 1;
+#pragma unroll %d
+      for (int u = 0; u < m; ++u) {
+        wam::cp_async4(dst + (0 * kTile + u) * kThreads, a);
+        wam::cp_async4(dst + (1 * kTile + u) * kThreads, r);
+        wam::cp_async4(dst + (2 * kTile + u) * kThreads, sa);
+        wam::cp_async4(dst + (3 * kTile + u) * kThreads, bw);
+        a += Bs;
+        r += Bs;
+        sa += Bs;
+        bw += Bs + odd - (odd ^ flip);
+        odd ^= flip;
+      }
+""" % unroll)
+
+
+# knockouts: outputs wrong, the time says what the part costs
+K8_NO_STORES = ("fsk_framing.cu", r"    byte_vals\[i\] = ev\.byte_val;\n"
+                r"    emits\[i\] = ev\.emit;\n    eods\[i\] = ev\.eod;\n"
+                r"    fires\[i\] = ev\.fire;\n", "")
+K8_NO_COPIES = ("fsk_framing.cu",
+                r"        wam::cp_async4\(dst \+ \(\d \* kTile \+ u\) "
+                r"\* kThreads,\s+[^;]+;", "")
+K8_VARIANTS = {
+    "as built": ([], []),
+    "copy warp": (K8_COPYWARP, []),
+    "copies in the step loop": ([K8_INLOOP], []),
+    "copy loop indexing each row": ([K8_COPY_INDEXED], []),
+    "copy loop indexing each row, unrolled for a full tile": (
+        [K8_COPY_FULL], []),
+    **{f"copy loop unrolled by {u}": ([_copy_strided(u)], [])
+       for u in (1, 2, 8)},
+    "revert: remainder by quarter": ([K8_REVERT_PHASE], []),
+    "revert: float EOD compare": ([K8_REVERT_EOD], []),
+    "revert both (the parent's step)": ([K8_REVERT_PHASE, K8_REVERT_EOD],
+                                        []),
+    **{f"kAhead {a}": ([("fsk_framing.cu", r"kAhead = \d+;",
+                         f"kAhead = {a};")], []) for a in (1, 3, 4)},
+    **{f"step loop unrolled by {u}": ([_unroll(u)], [])
+       for u in (1, 2, 4, 16)},
+    "K8 staged stores": (K8_STAGED, []),
+    "knockout: no plane stores": ([K8_NO_STORES], []),
+    "knockout: no input copies": ([K8_NO_COPIES], []),
+    "knockout: no input copies, no plane stores": (
+        [K8_NO_COPIES, K8_NO_STORES], []),
+}
+K8_VARIANTS.update({f"{k} + clock64": (subs + K8_CLOCK, flags)
+                    for k, (subs, flags) in list(K8_VARIANTS.items())})
+# the parent's layout: K8's packed word from fsk_stage_d.cu, its time
+# loop profiled alike
+K8_PARENT_VARIANTS = {
+    "as built": ([], []),
+    "as built + clock64": ([
+        ("fsk_framing.cu", r"(  const int fill0 = bit_fill\[b\];)",
+         "\\1\n  const long long wam_t0 = clock64();"),
+        ("fsk_framing.cu", r"(  fire_t\[b\] = last_fire;)",
+         "\\1\n  ints_out[b] = static_cast<int>(clock64() - wam_t0);"),
+        ("fsk_stage_d.cu", r"(  const int fill0 = bit_fill\[b\];)",
+         "\\1\n  const long long wam_t0 = clock64();"),
+        ("fsk_stage_d.cu", r"(  wam::framing_store\(s, ints_out, flts_out, "
+         r"Bs, b\);)",
+         "\\1\n  ints_out[b] = static_cast<int>(clock64() - wam_t0);")],
+        []),
+}
 KERNELS = {"k6": ("psk_seq", K6_VARIANTS), "k5": ("cumsum0", K5_VARIANTS),
-           "k4": ("align", K4_VARIANTS), "k3": ("viterbi", K3_VARIANTS)}
+           "k4": ("align", K4_VARIANTS), "k3": ("viterbi", K3_VARIANTS),
+           "k8": ("fsk_framing", K8_VARIANTS)}
 REPS, RUNS = 20, 3
 
 
@@ -336,6 +738,159 @@ def k3_ladder(dev, libs, label):
                   f"{' (the pick)' if inst == pick else ''}", flush=True)
 
 
+def k8_inputs(dev):
+    """(params, (ints, flts, bit_fill, bits, amps, ratios, sub_amps)): the
+    bench chunk's stage-D operands at B = 4096, as ``tools/turns.py
+    framing`` makes them."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
+
+    B = 4096
+    params = FSKParams.from_config(cs._bench_config())
+    sig = fsk_mod.modulate_batch(
+        params, cs._messages(np.random.default_rng(5), B, 13), dev)
+    state, _ = fsk_demod.demod_chunk(
+        params, 0, fsk_demod.init_state(params, B, dev), sig[:, :cs.CHUNK])
+    planes = cs._stage_d_inputs(
+        params, state, sig[:, cs.CHUNK:2 * cs.CHUNK].t().contiguous())
+    ints, flts = fsk_demod._framing_carry(params, state)
+    return params, (ints, flts, state.bit_fill, *planes)
+
+
+def k8_launchers(k2_lib, k8_lib, parent, params, args):
+    """{"K2": launch, "K8": launch}, each launching one build's kernel on
+    ``args`` into outputs made once and returning them; ``parent``: the
+    parent's C entries (K8's packed word, the float EOD in the
+    coefficients)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+    from webaudio_modem_tpu_torch.ops.kernels import _build, fsk_framing
+
+    ints, flts, bit_fill, bits, amps, ratios, sub = args
+    n, B = bits.shape
+    maxb = fsk_demod.max_bytes(params, n)
+    new = dict(device=bits.device)
+    c = fsk_framing._kernel_coef(params)
+    if parent:
+        class Coef(ctypes.Structure):
+            _fields_ = [(name, ctypes.c_int) for name in (
+                "ds_per_bit", "quarter", "stop_pos", "parity_on",
+                "amp_window", "sync_window", "wrap")] + [
+                ("eod_after", ctypes.c_float), ("sync_thr", ctypes.c_float)]
+        coef = Coef(c.ds_per_bit, c.quarter, c.stop_pos, c.parity_on,
+                    c.amp_window, c.sync_window, c.wrap,
+                    float(np.float32(params.samples_for_eod)), c.sync_thr)
+        planes = [torch.empty((n, B), dtype=torch.int32, **new)]
+    else:
+        coef = c
+        planes = [torch.empty((n, B), dtype=torch.int32, **new),
+                  *torch.empty((3, n, B), dtype=torch.bool, **new)]
+
+    def carry():
+        return [torch.empty((10, B), dtype=torch.int32, **new),
+                torch.empty((2, B), dtype=torch.float32, **new)]
+    k2_out = carry() + [torch.empty((B, maxb), dtype=torch.uint8, **new),
+                        *torch.empty((4, B), dtype=torch.int32, **new)]
+    k8_out = carry() + planes
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    f2, f8 = k2_lib.wam_fsk_framing, k8_lib.wam_fsk_stage_d
+    f2.argtypes = [vp] * 4 + [ci, ci] + [vp] * 6 + [ci] + [vp] * 6
+    f8.argtypes = [vp] * 4 + [ci, ci] + [vp] * (7 + len(planes))
+    f2.restype = f8.restype = ci
+    p = _build.ptr
+    ins = [p(x) for x in (bits, amps, ratios, sub)]
+    carry_in = [p(x) for x in (ints, flts, bit_fill)]
+    coef_p = ctypes.c_void_p(ctypes.addressof(coef))
+
+    def k2():
+        _build.raise_on_error(f2(
+            *ins, n, B, *carry_in, *map(p, k2_out[:3]), maxb,
+            *map(p, k2_out[3:]), coef_p, _build.stream()), "K2")
+        return k2_out
+
+    def k8():
+        _build.raise_on_error(f8(
+            *ins, n, B, *carry_in, *map(p, k8_out), coef_p,
+            _build.stream()), "K8")
+        return k8_out
+    k2.coef = k8.coef = coef      # kept alive with the launchers
+    return {"K2": k2, "K8": k8}
+
+
+def k8_run(dev, trees):
+    """Build and time ``K8_VARIANTS`` of the last checkout and
+    ``K8_PARENT_VARIANTS`` of the others, in turns, with each clock64
+    twin's cycles a step."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    import chip_smoke as cs
+
+    params, args = k8_inputs(dev)
+    n = args[3].shape[0]
+    libs = {}
+    for label, tree in trees[:-1]:
+        for name in ("fsk_framing", "fsk_stage_d"):
+            for (lb, variant), path in build_all(
+                    [(label, tree)], name, K8_PARENT_VARIANTS).items():
+                libs.setdefault((lb, variant), {})[name] = \
+                    ctypes.CDLL(str(path))
+    for key, path in build_all(trees[-1:], "fsk_framing",
+                               K8_VARIANTS).items():
+        lib = ctypes.CDLL(str(path))
+        libs[key] = {"fsk_framing": lib, "fsk_stage_d": lib}
+    parents = {label for label, _ in trees[:-1]}
+    launchers = {key: k8_launchers(lib["fsk_framing"], lib["fsk_stage_d"],
+                                   key[0] in parents, params, args)
+                 for key, lib in libs.items()}
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.cpu().contiguous().view(torch.uint8).numpy()
+                     .tobytes())
+        return h.hexdigest()[:16]
+
+    timed = [k for k in libs if not k[1].endswith("clock64")]
+    best = {}
+    for key in timed + timed[::-1]:
+        for kernel, fn in launchers[key].items():
+            for _ in range(3):
+                fn()
+            ms = min(cs._graph_ms(fn, REPS) for _ in range(RUNS))
+            best[key, kernel] = min(best.get((key, kernel), ms), ms)
+    for key in timed:
+        for kernel, fn in launchers[key].items():
+            if kernel == "K8" and key[0] in parents:
+                outs = fn()
+                packed = outs[2]
+                outs = outs[:2] + [packed & 0xFF, *((packed >> s & 1).bool()
+                                                  for s in (8, 9, 10))]
+            else:
+                outs = fn()
+            print(f"{kernel} n_ds={n} B={args[3].shape[1]}, {key[0]}, "
+                  f"{key[1]}: best {best[key, kernel]:.4f} ms; outputs "
+                  f"sha256 {digest(outs)}", flush=True)
+    for key in libs:
+        if not key[1].endswith("clock64"):
+            continue
+        for kernel, fn in launchers[key].items():
+            cycles = fn()[0][0].double() / max(n, 1)
+            print(f"{kernel}, {key[0]}, {key[1]}: the time loop's cycles a "
+                  f"step over the channels: median "
+                  f"{float(cycles.median()):.1f}, largest "
+                  f"{float(cycles.max()):.1f}", flush=True)
+
+
 def shares(planes):
     """Zero and subnormal shares of each plane."""
     import torch
@@ -373,6 +928,9 @@ def main(argv) -> int:
                                                       psk_seq)
 
     dev = torch.device("cuda", 0)
+    if name == "fsk_framing":
+        k8_run(dev, trees)
+        return 0
     logs = {}
     if name == "viterbi":     # the variants of this checkout, the others'
         built = build_all(trees[:-1], name, {"as built": ([], [])}, logs)

@@ -1,14 +1,25 @@
-// One step of the framing state machine (stage D), shared by K2
-// (fsk_framing.cu, with byte compaction) and K8 (fsk_stage_d.cu, per-step
-// packed events): the reference's ops/fsk_demod.py `_d_step` — silence
-// EOD, sync firing gated on the bit-window fill, majority-vote bit
-// decisions, UART byte assembly and the fused rolling amplitude-window
-// mean.
+// One step of the framing state machine (stage D), shared by K2 and K8
+// (the two output modes of fsk_framing.cu: bytes compacted per channel,
+// or the per-step event planes): the reference's ops/fsk_demod.py
+// `_d_step` — silence EOD, sync firing gated on the bit-window fill,
+// majority-vote bit decisions, UART byte assembly and the fused rolling
+// amplitude-window mean.
 //
 // Carry layout (the reference's `pack_carry`): ints i32 [10, B] =
 // started, counter, sil, accum, count, bsc, next_idx, byte_cur, pos,
 // amp-window fill; flts f32 [2, B] = silence threshold, rolling
-// amp-window sum.
+// amp-window sum.  In registers the carry also holds `phase` = counter
+// mod quarter, derived once at load and advanced beside the counter (a
+// compare and a select in place of a remainder by a run-time divisor on
+// the step's chain); it stays exact because the counter wraps at `wrap`,
+// a multiple of quarter (ops/kernels/fsk_framing.py `_wrap`), and is not
+// stored.
+//
+// The EOD compares integers: sil1 >= eod_steps, with eod_steps =
+// ceil(eod_after) from the host, which equals the reference's
+// float(sil1) >= eod_after for every int32 sil1 while |eod_steps| < 2^24
+// (int-to-float rounding is monotone, and exact below 2^24; the wrapper
+// checks the bound).
 //
 // Numerics: the float carries use the same op order as the plain version
 // (ops/kernels/fsk_framing.py `stage_d_plain`); built with -fmad=false and
@@ -20,8 +31,8 @@
 
 struct FskFramingCoef {
   int ds_per_bit, quarter, stop_pos, parity_on, amp_window, sync_window,
-      wrap;
-  float eod_after, sync_thr;
+      wrap, eod_steps;
+  float sync_thr;
 };
 
 namespace wam {
@@ -31,6 +42,7 @@ constexpr int kFramingInts = 10;
 struct FramingCarry {
   int started, counter, sil, accum, count, bsc, nxt, byte_cur, pos, fillv;
   float thr, run_sum;
+  int phase;  // counter mod quarter, in [0, quarter)
 };
 
 // what one step emits: the byte register before the step (the decoded
@@ -42,7 +54,7 @@ struct FramingEvents {
 
 __device__ __forceinline__ FramingCarry framing_load(
     const int* __restrict__ ints, const float* __restrict__ flts, size_t Bs,
-    int b) {
+    int b, const FskFramingCoef& c) {
   FramingCarry s;
   s.started = ints[0 * Bs + b];
   s.counter = ints[1 * Bs + b];
@@ -56,6 +68,8 @@ __device__ __forceinline__ FramingCarry framing_load(
   s.fillv = ints[9 * Bs + b];
   s.thr = flts[b];
   s.run_sum = flts[Bs + b];
+  s.phase = s.counter % c.quarter;
+  if (s.phase < 0) s.phase += c.quarter;
   return s;
 }
 
@@ -83,14 +97,16 @@ __device__ __forceinline__ FramingEvents framing_step(
 
   int counter1 = s.counter + 1;
   if (counter1 >= c.wrap) counter1 -= c.wrap;
+  int phase1 = s.phase + 1;
+  if (phase1 == c.quarter) phase1 = 0;
   // silence EOD
   const bool is_sil = amp < s.thr;
   const int sil1 = is_sil ? s.sil + 1 : 0;
-  const bool eod = is_sil && static_cast<float>(sil1) >= c.eod_after;
+  const bool eod = is_sil && sil1 >= c.eod_steps;
   const bool alive = !eod;
   const bool st = s.started > 0;
   // pre-sync pattern check
-  const bool fire = alive && !st && gate && counter1 % c.quarter == 0 &&
+  const bool fire = alive && !st && gate && phase1 == 0 &&
                     ratio > c.sync_thr;
   // post-sync majority-vote bit accumulation
   const bool post = alive && st;
@@ -123,6 +139,7 @@ __device__ __forceinline__ FramingEvents framing_step(
 
   s.started = (reset_full || drop_frame) ? 0 : (fire ? 1 : s.started);
   s.counter = reset_full ? 0 : counter1;
+  s.phase = reset_full ? 0 : phase1;
   s.sil = reset_full ? 0 : sil1;
   // the window mean only where a fire reads it: the same IEEE quotient
   // of the updated sum and fill, with its divide off the step's chain

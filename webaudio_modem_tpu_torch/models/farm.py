@@ -65,6 +65,10 @@ class ModemFarm:
         self.config = config
         self.batch = batch
         self.device = resolve_device(device)
+        if fsk_demod.AUTO_WARM_QUALITY:
+            fsk_demod.warm_quality_calibration(
+                self.params, family="psk" if isinstance(
+                    config, psk_model.PSKConfig) else "fsk")
         self.state = self._ops.init_state(self.params, batch, self.device)
         self._ds_phase = 0
 

@@ -50,6 +50,10 @@ class FSKCore(IModulator):
         self.params = FSKParams.from_config(config)
         self._init_state()
         self._ready = True
+        if fsk_demod.AUTO_WARM_QUALITY:
+            # build the quality calibration in the background, so the
+            # first get_signal_quality does not pay for it
+            fsk_demod.warm_quality_calibration(self.params)
         self.emit("configured")
 
     def _init_state(self) -> None:

@@ -578,19 +578,40 @@ def _join_warm_threads() -> None:
     _warm_threads.clear()
 
 
-def warm_quality_calibration(params: FSKParams) -> None:
-    """Start building ``_quality_calibration(params)`` (lru-cached) on a
-    daemon thread, so the first ``get_signal_quality`` does not pay for
-    it.  Idempotent per configuration."""
-    if params in _warm_started:
+def _family_calibration(params: FSKParams, family: str):
+    """The ``quality_calibration`` tables of ``family``, lru-cached by
+    each family's builder (``ops.psk`` is imported here, not at module
+    import: it imports this module)."""
+    if family == "psk":
+        from webaudio_modem_tpu_torch.ops import psk
+
+        return psk._quality_calibration(params)
+    return _quality_calibration(params)
+
+
+def warm_quality_calibration(params: FSKParams, family: str = "fsk",
+                             background: bool = True) -> None:
+    """Build the clean-signal calibration of ``family`` ("fsk", or "psk"
+    for DBPSK) ahead of the first ``get_signal_quality`` poll.
+    Idempotent per (params, family); with ``background`` the build runs
+    on a daemon thread so ``configure()`` never blocks on it (a
+    concurrent poll at worst duplicates the lru-cached build), else on
+    the caller's thread."""
+    if family not in ("fsk", "psk"):
+        raise ValueError(f"family {family!r}: 'fsk' or 'psk'")
+    key = (params, family)
+    if key in _warm_started:
         return
-    _warm_started.add(params)
+    _warm_started.add(key)
+    if not background:
+        _family_calibration(params, family)
+        return
 
     def build():
         try:
-            _quality_calibration(params)
+            _family_calibration(params, family)
         except Exception:  # noqa: BLE001 — the lazy path retries it
-            _warm_started.discard(params)
+            _warm_started.discard(key)
 
     if not _warm_threads:
         atexit.register(_join_warm_threads)

@@ -4,9 +4,10 @@ Per downsampled step, ``_d_step`` of
 ``webaudio_modem_tpu/ops/fsk_demod.py``: silence EOD, sync firing gated
 on the bit-window fill, majority-vote bit decisions, UART byte
 assembly and the fused rolling amplitude mean.  Two kernels run it,
-sharing the step (``csrc/framing_step.cuh``):
+the two output modes of one kernel body (``csrc/fsk_framing.cu``, the
+step in ``csrc/framing_step.cuh``), with one copy-ahead input pipeline:
 
-* K2, ``stage_d_compact`` (``csrc/fsk_framing.cu``), replaces
+* K2, ``stage_d_compact`` (entry ``wam_fsk_framing``), replaces
   ``webaudio_modem_tpu/ops/pallas/fsk_framing.py`` ``_kernel_compact``.
   Out come the decoded bytes, packed per channel from slot 0, the
   counts of bytes, EODs and sync fires, and the step of the last fire
@@ -14,11 +15,11 @@ sharing the step (``csrc/framing_step.cuh``):
   cursor]``, so unlike the TPU kernel it has no slot bound (the TPU's
   ``MAX_SLOTS``) and no fallback for long chunks: ``demod_chunk`` runs it
   at every chunk length.
-* K8, ``stage_d`` (``csrc/fsk_stage_d.cu``), replaces the same file's
-  ``_kernel``: the per-step events, one packed int32 word per step and
-  channel (byte | emit << 8 | eod << 9 | fire << 10), unpacked to the
-  four planes ``stage_d_plain`` returns.  ``fsk_demod.stage_d`` is its
-  entry point, the counterpart of the reference's ``_stage_d``.
+* K8, ``stage_d`` (entry ``wam_fsk_stage_d``), replaces the same file's
+  ``_kernel``: the per-step events as the four planes ``stage_d_plain``
+  returns, written by the kernel in one launch (the TPU kernel's packed
+  word is not kept).  ``fsk_demod.stage_d`` is its entry point, the
+  counterpart of the reference's ``_stage_d``.
 
 Carry layout (as the reference's ``pack_carry``): ``ints`` i32 [10, B]
 = started, counter, sil, accum, count, bsc, next_idx, byte_cur, pos,
@@ -202,8 +203,21 @@ class _Coef(ctypes.Structure):
                 ("stop_pos", ctypes.c_int), ("parity_on", ctypes.c_int),
                 ("amp_window", ctypes.c_int),
                 ("sync_window", ctypes.c_int), ("wrap", ctypes.c_int),
-                ("eod_after", ctypes.c_float),
+                ("eod_steps", ctypes.c_int),
                 ("sync_thr", ctypes.c_float)]
+
+
+def _eod_steps(params: FSKParams) -> int:
+    """ceil(eod_after): the kernels' ``sil1 >= eod_steps`` equals the
+    plain version's ``float(sil1) >= eod_after`` for every int32 sil1
+    while |eod_steps| < 2^24 (int-to-float rounding is monotone and exact
+    below 2^24).  Raises beyond that bound."""
+    n = int(np.ceil(np.float32(params.samples_for_eod)))
+    if abs(n) >= 2 ** 24:
+        raise ValueError(f"samples_for_eod {params.samples_for_eod}: the "
+                         "kernels' integer EOD compare is exact only below "
+                         "2^24 steps")
+    return n
 
 
 @functools.lru_cache(maxsize=64)
@@ -211,8 +225,7 @@ def _kernel_coef(params: FSKParams) -> _Coef:
     return _Coef(params.ds_samples_per_bit, params.quarter_bit,
                  params.stop_bit_position,
                  int(params.config.parity != "none"), params.amp_window,
-                 params.sync_window, _wrap(params),
-                 float(np.float32(params.samples_for_eod)),
+                 params.sync_window, _wrap(params), _eod_steps(params),
                  float(np.float32(params.config.sync_threshold)))
 
 
@@ -227,11 +240,11 @@ def _entry():
 
 
 def _stage_d_entry():
-    fn = _build.library("fsk_stage_d").wam_fsk_stage_d
+    fn = _build.library("fsk_framing").wam_fsk_stage_d
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp,
-                       ctypes.POINTER(_Coef), vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+                       vp, vp, ctypes.POINTER(_Coef), vp]
         fn.restype = ci
     return fn
 
@@ -269,18 +282,18 @@ def stage_d(params: FSKParams, ints: torch.Tensor, flts: torch.Tensor,
     new = dict(device=bits.device)
     ints_out = torch.empty((N_I32, B), dtype=torch.int32, **new)
     flts_out = torch.empty((N_F32, B), dtype=torch.float32, **new)
-    packed = torch.empty((n_ds, B), dtype=torch.int32, **new)
+    byte_vals = torch.empty((n_ds, B), dtype=torch.int32, **new)
+    flags = torch.empty((3, n_ds, B), dtype=torch.bool, **new)
     p = _build.ptr
     with torch.cuda.device(bits.device):
         err = _stage_d_entry()(
             p(bits), p(amps), p(ratios), p(sub_amps), n_ds, B, p(ints),
-            p(flts), p(bit_fill), p(ints_out), p(flts_out), p(packed),
+            p(flts), p(bit_fill), p(ints_out), p(flts_out), p(byte_vals),
+            p(flags[0]), p(flags[1]), p(flags[2]),
             ctypes.byref(_kernel_coef(params)), _build.stream())
     _build.raise_on_error(err, "fsk_stage_d")
     stage_d_launches += 1
-    planes = (packed & 0xFF, (packed >> 8 & 1).bool(),
-              (packed >> 9 & 1).bool(), (packed >> 10 & 1).bool())
-    return (ints_out, flts_out), planes
+    return (ints_out, flts_out), (byte_vals, flags[0], flags[1], flags[2])
 
 
 def stage_d_compact(params: FSKParams, ints: torch.Tensor,
