@@ -28,7 +28,11 @@ it builds with nvcc first (one nvcc per source, all at once):
     ``fsk_demod.stage_d`` and the masked-sum compaction (no other entry
     point of the port reaches K8; its launches are reported under the
     path "tpu_route (chip_smoke)"); BASELINE config 4 (V.21 full
-    duplex), the impairment sweeps and checkpoints.
+    duplex), the impairment sweeps and checkpoints;
+  * BASELINE config 3, XModem end to end over simulated audio: two
+    ``FSKProcessor``s on one ``AudioGraph`` at B = 1, over ``FSKCore``
+    (K1 + K2), ``PSKCore`` (K6 + K2) and ``SoftModemCore`` (K1 in its
+    csum mode + K3).
 
 Phases:
 
@@ -130,7 +134,21 @@ Phases:
      noise; carrier-offset and clock-skew sweeps at B = 1024 (golden
      parity on 8 messages per point) and a soft-column point through
      SoftModemCore; a B = 4096 farm saved after 3 chunks, restored into
-     a new farm and run on, equal to an uninterrupted run.
+     a new farm and run on, equal to an uninterrupted run;
+ 18. BASELINE config 3: XModem over two FSKProcessors(device="cuda") on
+     one AudioGraph(quantum=512) with the reference suites' transfers
+     (``XMODEM_TRANSFERS``): hello, 500 bytes (fragments 1-4 in order),
+     the payload whose own CRC tail is a NAK (no retransmission), 80
+     bytes at payload 32, AWGN, burst loss (payload 24, 8 retries), the
+     same with one quantum lost inside fragment 1 (recovered by
+     retransmission at XModem's 3 s default timeout), DBPSK (PSKCore)
+     and the soft-FEC modem (SoftModemCore); every payload
+     exact, launches counted per transfer (each core's kernels launched),
+     no ERROR record from the processor, every core's state on the card;
+     per transfer the audio and wall seconds and the median / p99 of one
+     graph step against the 10.67 ms quantum; the hello again paced at
+     the audio clock (late quanta counted); the hello receiver's quanta
+     replayed through the plain versions on the CPU, equal call by call.
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
 CUDA device it fails in phase 1 and prints no result.  The line before
@@ -2781,6 +2799,436 @@ def phase_v21_impairments_checkpoints(device, rng, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: BASELINE config 3, XModem over simulated audio at B = 1
+# ---------------------------------------------------------------------------
+
+XMODEM_QUANTUM = 512              # AudioGraph(quantum=512), as the suites
+XMODEM_TIMEOUT_MS = 20000         # tests/runtime/conftest.py's harness
+SOFT_TIMEOUT_MS = 60000           # tests/runtime/test_soft_integration.py's
+AUDIO_QUANTUM_MS = XMODEM_QUANTUM / 48000 * 1e3
+# the reference suites' transfers (tests/runtime/test_integration.py, the
+# DBPSK one of tests/modems/test_psk.py, the hello of
+# test_soft_integration.py): name, core, payload, channel, sender and
+# receiver settings, and what each must show besides exact bytes
+XMODEM_TRANSFERS = (
+    dict(name="hello", data=b"Hello, World!", replay=True),
+    dict(name="500_bytes",
+         data=bytes((i * 7 + 13) & 0xFF for i in range(500)),
+         progress=[1, 2, 3, 4]),
+    dict(name="crc_tail", data=b"VECDRAIN-" * 40, no_retransmit=True),
+    dict(name="80_bytes_payload_32", data=bytes(range(80)),
+         sender={"max_payload_size": 32}),
+    dict(name="noisy", data=b"noisy channel payload",
+         channel=("awgn", 5e-4, 3)),
+    dict(name="lossy", data=bytes(range(96)),
+         channel=("dropout", 0.004, 11, 256),
+         sender={"max_payload_size": 24, "max_retries": 8},
+         receiver={"max_retries": 8}),
+    # the same transfer with one loss placed inside fragment 1 (the 16th
+    # quantum that carries a tone: the NAK takes ~4, the fragment ~26),
+    # so it must recover by retransmission; at XModem's own default
+    # timeout, 3 s, which the card's steps never come near
+    dict(name="lossy_in_fragment_1", data=bytes(range(96)),
+         channel=("drop_active", 16),
+         sender={"max_payload_size": 24, "max_retries": 8,
+                 "timeout_ms": 3000},
+         receiver={"max_retries": 8, "timeout_ms": 3000},
+         retransmit=True),
+    dict(name="dbpsk", core="psk", data=b"PSK over XModem!"),
+    dict(name="soft", core="soft", data=b"Hello, soft ARQ!"),
+)
+# the kernels each core's transfers must launch (K1 + K2, K6 + K2, K1 in
+# its csum mode + K3)
+XMODEM_KERNELS = {"fsk": ("fsk_seq", "fsk_framing"),
+                  "psk": ("psk_seq", "fsk_framing"),
+                  "soft": ("fsk_seq", "viterbi")}
+
+
+def _kernel_modules():
+    from webaudio_modem_tpu_torch.ops.kernels import (align, cumsum0,
+                                                      fsk_framing, fsk_seq,
+                                                      psk_seq, viterbi)
+
+    return {"fsk_seq": fsk_seq, "fsk_framing": fsk_framing,
+            "viterbi": viterbi, "align": align, "psk_seq": psk_seq,
+            "cumsum0": cumsum0}
+
+
+def _zero_all_launches():
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+    _kernel_modules()["fsk_framing"].stage_d_launches = 0
+
+
+def _all_launches():
+    out = {n: m.launches for n, m in _kernel_modules().items()}
+    out["fsk_stage_d"] = _kernel_modules()["fsk_framing"].stage_d_launches
+    return out
+
+
+class _ErrorRecords:
+    """A logging handler on the processor's logger: the processor logs a
+    failed demodulation and goes on (as the JAX package's does), so a
+    kernel that fails on the card would show only as a stalled transfer;
+    every step checks this list and raises."""
+
+    def __init__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                self.records.append(inner.format(record))
+
+        self.records = []
+        self.handler = Handler(logging.ERROR)
+        logging.getLogger("webaudio_modem_tpu_torch.processor").addHandler(
+            self.handler)
+
+    def close(self):
+        import logging
+
+        logging.getLogger(
+            "webaudio_modem_tpu_torch.processor").removeHandler(self.handler)
+
+
+def _xmodem_core(kind, device):
+    """(core factory, config) of a transfer's modem core."""
+    from webaudio_modem_tpu_torch.models.config import DEFAULT_FSK_CONFIG
+    from webaudio_modem_tpu_torch.models.psk import (DEFAULT_PSK_CONFIG,
+                                                     PSKCore)
+    from webaudio_modem_tpu_torch.models.soft_modem import SoftModemCore
+
+    if kind == "psk":
+        return (lambda: PSKCore(device=device)), DEFAULT_PSK_CONFIG
+    if kind == "soft":
+        return (lambda: SoftModemCore(device=device)), DEFAULT_FSK_CONFIG
+    return None, DEFAULT_FSK_CONFIG
+
+
+def _xmodem_processor(name, kind, device):
+    """A configured processor whose core has decoded one quantum of
+    silence: the path's first use (library loads, the sync tables) is
+    done before a wall-clock protocol timeout runs."""
+    import numpy as np
+
+    from webaudio_modem_tpu_torch.runtime import FSKProcessor
+
+    factory, config = _xmodem_core(kind, device)
+    proc = FSKProcessor(name=name, device=device,
+                        core=None if factory is None else factory())
+    proc.configure(config)
+    proc.fsk_core.demodulate_data(np.zeros(XMODEM_QUANTUM, np.float32))
+    return proc
+
+
+def _xmodem_channel(spec):
+    from webaudio_modem_tpu_torch.sim import (make_awgn_channel,
+                                              make_dropout_channel)
+
+    if spec is None:
+        return None
+    if spec[0] == "drop_active":
+        return _drop_active_quantum(spec[1])
+    if spec[0] == "awgn":
+        return make_awgn_channel(noise_power=spec[1], seed=spec[2])
+    return make_dropout_channel(drop_probability=spec[1], seed=spec[2],
+                                block=spec[3])
+
+
+def _drop_active_quantum(k):
+    """A channel that zeroes the ``k``-th quantum carrying a tone (peak
+    above 0.1), once."""
+    import numpy as np
+
+    seen = [0]
+
+    def fn(x):
+        x = np.array(x, np.float32, copy=True)
+        if np.abs(x).max() > 0.1:
+            seen[0] += 1
+            if seen[0] == k:
+                x[:] = 0.0
+        return x
+
+    return fn
+
+
+class _RxRecorder:
+    """Per quantum the receiver got: its input, the post-TX guard before
+    it, and each (sample count, bytes) its core's ``demodulate_data``
+    returned inside that ``process()``."""
+
+    def __init__(self, proc):
+        self.quanta = []
+        process, demodulate = proc.process, proc.fsk_core.demodulate_data
+
+        def recording_process(inputs, outputs):
+            self.quanta.append((inputs.copy(), proc._rx_guard, []))
+            return process(inputs, outputs)
+
+        def recording_demodulate(samples):
+            out = demodulate(samples)
+            self.quanta[-1][2].append((len(samples), out))
+            return out
+
+        proc.process = recording_process
+        proc.fsk_core.demodulate_data = recording_demodulate
+
+    def calls(self):
+        return [calls for _, _, calls in self.quanta]
+
+
+def _core_state_devices(core):
+    """The device types of a core's carried state tensors."""
+    import dataclasses
+
+    import torch
+
+    state = getattr(core, "_state", None)
+    if state is None:
+        state = core._decoder._state
+    return {getattr(state, f.name).device.type
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
+async def _xmodem_drive(graph, sender, receiver, data, trap,
+                        realtime=False, timeout_s=300):
+    """Run one send_data / receive_data pair while the graph plays;
+    returns (received, per-step ms, late quanta).  Each step is timed to
+    the card's end of its work and checks the error records; a late
+    quantum is one whose step finished after its audio deadline (only
+    counted when ``realtime``)."""
+    import asyncio
+
+    import torch
+
+    step = graph.step
+    step_ms, late = [], [0]
+    t_start = time.monotonic()
+
+    def timed_step():
+        t0 = time.perf_counter()
+        mix = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if realtime and time.monotonic() > t_start + \
+                graph.steps * graph.quantum / graph.sample_rate:
+            late[0] += 1
+        if trap.records:
+            raise RuntimeError(f"processor error: {trap.records[0]}")
+        return mix
+
+    graph.step = timed_step
+    t_start = time.monotonic()
+    drive = asyncio.ensure_future(graph.run(realtime=realtime))
+    send = asyncio.ensure_future(sender.send_data(data))
+    recv = asyncio.ensure_future(receiver.receive_data())
+    try:
+        done, _ = await asyncio.wait({drive, recv}, timeout=timeout_s,
+                                     return_when=asyncio.FIRST_COMPLETED)
+        if drive in done:
+            drive.result()
+            raise RuntimeError("the audio graph stopped mid-transfer")
+        if recv not in done:
+            raise TimeoutError(f"no transfer within {timeout_s} s")
+        recv.result()                   # the receiver's error raises here
+        await asyncio.wait_for(send, 60)
+        graph.stop()
+        await drive                     # a failed last step raises here
+        return recv.result(), step_ms, late[0]
+    finally:
+        graph.stop()
+        for task in (drive, send, recv):
+            if not task.done():
+                task.cancel()
+
+
+def _xmodem_transfer(spec, device, trap, realtime=False):
+    """One transfer of ``XMODEM_TRANSFERS`` on a fresh stack: two
+    processors on one AudioGraph(quantum=512), each with an
+    XModemTransport; launches counted from 0 over the transfer."""
+    import asyncio
+
+    import torch
+
+    from webaudio_modem_tpu_torch.runtime import AudioGraph
+    from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
+
+    kind = spec.get("core", "fsk")
+    procs = [_xmodem_processor(n, kind, device)
+             for n in ("sender", "receiver")]
+    graph = AudioGraph(quantum=XMODEM_QUANTUM,
+                       channel_fn=_xmodem_channel(spec.get("channel")))
+    sender, receiver = (XModemTransport(p) for p in procs)
+    timeout_ms = SOFT_TIMEOUT_MS if kind == "soft" else XMODEM_TIMEOUT_MS
+    for t, extra in ((sender, spec.get("sender")),
+                     (receiver, spec.get("receiver"))):
+        graph.connect(t.data_channel)
+        t.configure({"timeout_ms": timeout_ms, "max_retries": 3,
+                     **(extra or {})})
+    progress = []
+    receiver.on("fragmentReceived",
+                lambda ev: progress.append(ev.data["seq_num"]))
+    recorder = (_RxRecorder(procs[1]) if spec.get("replay") and not realtime
+                else None)
+
+    torch.cuda.synchronize()
+    _zero_all_launches()
+    t0 = time.perf_counter()
+    received, step_ms, late = asyncio.run(_xmodem_drive(
+        graph, sender, receiver, spec["data"], trap, realtime=realtime))
+    wall_s = time.perf_counter() - t0
+    launches = _all_launches()
+
+    name = spec["name"] + (" (realtime)" if realtime else "")
+    stats = sender.get_statistics()
+    if received != spec["data"]:
+        raise RuntimeError(f"xmodem {name}: received {received[:40]!r}...")
+    if stats.bytes_transferred != len(spec["data"]):
+        raise RuntimeError(f"xmodem {name}: {stats}")
+    if "progress" in spec and progress != spec["progress"]:
+        raise RuntimeError(f"xmodem {name}: fragments {progress}")
+    if spec.get("no_retransmit") and stats.packets_retransmitted:
+        raise RuntimeError(f"xmodem {name}: {stats.packets_retransmitted} "
+                           "retransmissions")
+    if spec.get("retransmit") and not stats.packets_retransmitted:
+        raise RuntimeError(f"xmodem {name}: no retransmission")
+    missing = [k for k in XMODEM_KERNELS[kind] if not launches[k]]
+    if missing:
+        raise RuntimeError(f"xmodem {name}: no launch of {missing}")
+    devices = set().union(*(_core_state_devices(p.fsk_core) for p in procs))
+    if devices != {device.type}:
+        raise RuntimeError(f"xmodem {name}: core state on {devices}")
+    ms = sorted(step_ms)
+    out = {"transfer": name, "core": kind, "bytes": len(spec["data"]),
+           "steps": graph.steps,
+           "audio_s": graph.steps * XMODEM_QUANTUM / 48000,
+           "wall_s": wall_s, "step_median_ms": ms[len(ms) // 2],
+           "step_p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+           "step_max_ms": ms[-1], "late_quanta": late if realtime else None,
+           "packets_sent": stats.packets_sent,
+           "retransmitted": stats.packets_retransmitted,
+           "receiver_dropped": receiver.get_statistics().packets_dropped,
+           "fragments": progress, "launches": launches}
+    return out, recorder
+
+
+def _replay_on_cpu(recorder):
+    """The receiver's quanta of the hello transfer through an FSKProcessor
+    on the CPU (the plain versions), each with the post-TX guard the card
+    run had before it: the same (sample count, bytes) per core call."""
+    import torch
+
+    replay = _xmodem_processor("replay", "fsk", torch.device("cpu"))
+    got = _RxRecorder(replay)
+    for inputs, guard, _ in recorder.quanta:
+        replay._rx_guard = guard
+        replay.process(inputs, None)
+    want = recorder.calls()
+    for i, (a, b) in enumerate(zip(got.calls(), want)):
+        if a != b:
+            raise RuntimeError(f"quantum {i}: plain {a} != kernels {b}")
+    if len(got.calls()) != len(want):
+        raise RuntimeError("replay length differs")
+    return len(want), sum(len(out) for calls in want for _, out in calls)
+
+
+def _xmodem_step_profile(device, trap, card, step_wall_ms):
+    """torch.profiler over one more hello transfer: per graph step (both
+    processors), the device's kernels, copies to the host and busy time
+    against ``step_wall_ms``, the unprofiled median step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, _ = _xmodem_transfer(XMODEM_TRANSFERS[0], device, trap)
+    steps = out["steps"]
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    def us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if getattr(e, attr, None) is not None:
+                return getattr(e, attr)
+        return 0.0
+
+    copies = [e for e in dev if "Memcpy" in e.key or "Memset" in e.key]
+    kernels = [e for e in dev if e not in copies]
+    dtoh = sum(e.count for e in copies if "DtoH" in e.key)
+    busy_ms = sum(us(e) for e in dev) / 1e3 / steps
+    res = {"steps": steps,
+           "kernels_per_step": sum(e.count for e in kernels) / steps,
+           "copies_to_host_per_step": dtoh / steps,
+           "device_ms_per_step": busy_ms,
+           "busy_share": busy_ms / step_wall_ms,
+           "top": [(e.key[:60], us(e) / 1e3 / steps, e.count / steps)
+                   for e in sorted(dev, key=us, reverse=True)[:6]]}
+    print(f"  profile of a hello transfer, per graph step (two processors, "
+          f"{steps} steps): {res['kernels_per_step']:.1f} kernels, "
+          f"{res['copies_to_host_per_step']:.1f} copies to the host, "
+          f"{busy_ms:.4f} ms of device time: busy "
+          f"{100 * res['busy_share']:.1f} % of the {step_wall_ms:.3f} ms "
+          f"median step [{card}]")
+    for key, ms, n in res["top"]:
+        print(f"    {ms:8.4f} ms/step  {n:6.2f} per step  {key}")
+    return res
+
+
+def phase_xmodem_audio(device, card):
+    """BASELINE config 3: XModem end to end over simulated audio through
+    the port's processor and audio graph at B = 1 (the reference suites'
+    transfers); the hello transfer again with the graph paced at the
+    audio clock; the hello's receiver quanta replayed through the plain
+    versions on the CPU.  Returns the launches summed over the
+    transfers and the per-transfer results."""
+    trap = _ErrorRecords()
+    results, total = [], {}
+    t_phase = time.perf_counter()
+    try:
+        runs = [(spec, False) for spec in XMODEM_TRANSFERS]
+        runs.append((XMODEM_TRANSFERS[0], True))
+        for spec, realtime in runs:
+            out, recorder = _xmodem_transfer(spec, device, trap,
+                                             realtime=realtime)
+            results.append(out)
+            for k, v in out["launches"].items():
+                total[k] = total.get(k, 0) + v
+            late = ("" if not realtime else
+                    f", {out['late_quanta']} of {out['steps']} quanta "
+                    "finished after their deadline")
+            print(f"  {out['transfer']} ({out['core']}, {out['bytes']} B): "
+                  f"exact; {out['audio_s']:.3f} s of audio in "
+                  f"{out['wall_s']:.3f} s wall, {out['steps']} steps; step "
+                  f"median {out['step_median_ms']:.3f} ms, p99 "
+                  f"{out['step_p99_ms']:.3f} ms, max "
+                  f"{out['step_max_ms']:.3f} ms against "
+                  f"{AUDIO_QUANTUM_MS:.2f} ms of audio{late}; sent "
+                  f"{out['packets_sent']}, retransmitted "
+                  f"{out['retransmitted']}, receiver dropped "
+                  f"{out['receiver_dropped']}, fragments {out['fragments']}"
+                  f"; launches {out['launches']} [{card}]")
+            if recorder is not None:
+                t0 = time.perf_counter()
+                n, n_bytes = _replay_on_cpu(recorder)
+                print(f"  {spec['name']}: the receiver's {n} quanta replayed "
+                      f"through the plain versions on the CPU decode the "
+                      f"same {n_bytes} bytes call by call "
+                      f"({time.perf_counter() - t0:.1f} s)")
+        results.append({"hello_step_profile": _xmodem_step_profile(
+            device, trap, card, results[0]["step_median_ms"])})
+    finally:
+        trap.close()
+    if trap.records:
+        raise RuntimeError(f"processor errors: {trap.records[:3]}")
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{total} [{card}]")
+    return total, results
+
+
 def _host_ops(label, run, calls, top=8):
     """The host side of ``run()`` (``calls`` calls) under torch.profiler,
     CPU only: kernel launches per call and the operators with the most
@@ -2882,6 +3330,8 @@ def main() -> int:
     ber_launches, route_launches, ber_out = phase_ber(device, card)
     print("phase 17: V.21 full duplex, impairments, checkpoints")
     slice_out = phase_v21_impairments_checkpoints(device, rng, card)
+    print("phase 18: BASELINE config 3, XModem over simulated audio")
+    xmodem_launches, xmodem_out = phase_xmodem_audio(device, card)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib",
@@ -2895,7 +3345,8 @@ def main() -> int:
                    "dbpsk": psk_launches.get(name, 0),
                    "blind": blind_launches.get(name, 0),
                    "ber": ber_launches.get(name, 0),
-                   "tpu_route (chip_smoke)": route_launches.get(name, 0)}
+                   "tpu_route (chip_smoke)": route_launches.get(name, 0),
+                   "xmodem_audio": xmodem_launches.get(name, 0)}
         if not any(by_path.values()):
             raise RuntimeError(f"{name}: no launch on a main path")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2915,7 +3366,8 @@ def main() -> int:
 
     kernels = [
         row("fsk_seq", "fsk_seq.cu", "fsk_seq.py:131", kernel_ms["fsk_seq"],
-            {"modes": {
+            {"xmodem_audio_main_path": xmodem_out,
+             "modes": {
                 "all streams (hard path)": "the row's numbers",
                 "emit_csum, bits/amps dropped (soft path)":
                     {k: soft["fsk_seq_csum"][k]

@@ -26,11 +26,13 @@ from webaudio_modem_tpu_torch.models.fsk import FSKCore
 from webaudio_modem_tpu_torch.models.psk import PSKConfig, PSKCore
 from webaudio_modem_tpu_torch.models.soft_modem import SoftModemCore
 from webaudio_modem_tpu_torch.models.v21 import V21Duplex, V21Station
-from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod, psk, soft_fsk
+from webaudio_modem_tpu_torch.ops import (fec, filters, fsk_demod, fsk_mod,
+                                          psk, soft_fsk)
 from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
                                                   fsk_framing, fsk_seq,
                                                   psk_seq, viterbi)
 from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
+from webaudio_modem_tpu_torch.runtime import FSKProcessor
 from webaudio_modem_tpu_torch.sim import ber, impairments
 
 REPO = Path(__file__).resolve().parents[2]
@@ -92,7 +94,20 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
     "webaudio_modem_tpu_torch.golden.fsk_golden",
     "webaudio_modem_tpu_torch.models.v21",
     "webaudio_modem_tpu_torch.models.checkpoint",
-    "webaudio_modem_tpu_torch.ops.filters"])
+    "webaudio_modem_tpu_torch.ops.filters",
+    "webaudio_modem_tpu_torch.utils.abort",
+    "webaudio_modem_tpu_torch.utils.ring_buffer",
+    "webaudio_modem_tpu_torch.utils.audio_io",
+    "webaudio_modem_tpu_torch.runtime",
+    "webaudio_modem_tpu_torch.runtime.processor",
+    "webaudio_modem_tpu_torch.runtime.audio_graph",
+    "webaudio_modem_tpu_torch.runtime.chunked_modulator",
+    "webaudio_modem_tpu_torch.runtime.data_channel",
+    "webaudio_modem_tpu_torch.transports",
+    "webaudio_modem_tpu_torch.transports.xmodem",
+    "webaudio_modem_tpu_torch.transports.xmodem.types",
+    "webaudio_modem_tpu_torch.transports.xmodem.packet",
+    "webaudio_modem_tpu_torch.transports.xmodem.xmodem"])
 def test_new_modules_are_walked_behind_the_blocker(module):
     code = _BLOCKED_IMPORTS.replace(
         'print(len(names), "modules clean")',
@@ -114,6 +129,7 @@ def test_new_modules_are_walked_behind_the_blocker(module):
     ber.ber_sweep, ber.ber_parity_report, impairments.carrier_offset_sweep,
     impairments.clock_skew_sweep, V21Station.__init__, V21Duplex.__init__,
     checkpoint.load_state, checkpoint.loads_state, ModemFarm.restore,
+    filters.biquad_init_state, FSKProcessor.__init__,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -145,10 +161,34 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         lambda: V21Duplex(),
         lambda: checkpoint.loads_state(checkpoint.dumps_state(
             fsk_demod.init_state(params, 1, "cpu"), FSKConfig())),
+        lambda: filters.biquad_init_state((2,)),
+        lambda: FSKProcessor(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
             call()
+
+
+def test_framed_xmodem_path_names_nothing_of_the_jax_package():
+    """The JAX package's XModem reaches its native deframer on the frame
+    path; the port's copy refuses a framed channel instead, and its
+    source names no module of the JAX package."""
+    import asyncio
+    import re
+
+    from webaudio_modem_tpu_torch.runtime.data_channel import (
+        QueueDataChannel)
+    from webaudio_modem_tpu_torch.transports.xmodem import xmodem
+
+    source = Path(xmodem.__file__).read_text()
+    assert not re.search(r"webaudio_modem_tpu\.", source)
+    channel = QueueDataChannel()
+    channel.supports_frames = True
+    transport = xmodem.XModemTransport(channel)
+    for op in (transport.receive_data, lambda: transport.send_data(b"x")):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            asyncio.run(op())
+    assert transport.is_ready()
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

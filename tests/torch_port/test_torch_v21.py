@@ -129,7 +129,7 @@ def test_biquad_scan_matches_the_reference():
 
     ref_state, ref_y = jax_filters.biquad_scan(
         coeffs, jax_filters.biquad_init_state((4,)), jnp.asarray(x))
-    state = filters.biquad_init_state((4,))
+    state = filters.biquad_init_state((4,), device="cpu")
     outs = []
     for piece in np.split(x, [250], axis=1):    # streamed in two pieces
         state, y = filters.biquad_scan(coeffs, state, torch.from_numpy(piece))

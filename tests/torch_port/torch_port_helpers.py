@@ -64,3 +64,56 @@ def reference_fields(state):
                 value = value.astype(np.float32)
         out[name] = value
     return out
+
+
+# XModem over the simulated audio graph on the CPU.  XModem's timeouts
+# are wall-clock while the graph runs as fast as it can: on the CPU each
+# processor pays K1's plain version (~0.3-0.5 ms a sample), so a hello's
+# ACK round trip takes ~17 s of wall clock on an idle core, close to the
+# JAX package's 20 s harness timeout; under several test workers it would
+# pass it and retransmit.  The port's stacks wait 120 s instead, and the
+# tests hold the transfers to zero retransmissions.
+ARQ_TIMEOUT_MS = 120000
+
+
+def make_arq_stack(channel_fn=None, core_factory=None, config=None,
+                   timeout_ms=ARQ_TIMEOUT_MS, max_retries=3, quantum=512):
+    """(graph, sender, receiver): the port's copy of
+    ``tests/runtime/conftest.py``'s stack, on the CPU: two processors on
+    one loopback graph with XModem transports.  ``core_factory`` returns
+    a fresh modem core per processor (None = FSKCore on the CPU)."""
+    from webaudio_modem_tpu_torch.models.config import DEFAULT_FSK_CONFIG
+    from webaudio_modem_tpu_torch.runtime import AudioGraph, FSKProcessor
+    from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
+
+    def proc(name):
+        core = None if core_factory is None else core_factory()
+        p = FSKProcessor(name=name, core=core, device="cpu")
+        p.configure(DEFAULT_FSK_CONFIG if config is None else config)
+        return p
+
+    sender_proc, receiver_proc = proc("sender"), proc("receiver")
+    graph = AudioGraph(quantum=quantum, channel_fn=channel_fn)
+    graph.connect(sender_proc)
+    graph.connect(receiver_proc)
+    sender = XModemTransport(sender_proc)
+    receiver = XModemTransport(receiver_proc)
+    for t in (sender, receiver):
+        t.configure({"timeout_ms": timeout_ms, "max_retries": max_retries})
+    return graph, sender, receiver
+
+
+async def arq_transfer(graph, sender, receiver, data, timeout=600):
+    """Drive the graph while one send_data / receive_data pair runs."""
+    import asyncio
+
+    drive = asyncio.ensure_future(graph.run())
+    try:
+        send_task = asyncio.ensure_future(sender.send_data(data))
+        received = await asyncio.wait_for(receiver.receive_data(),
+                                          timeout=timeout)
+        await asyncio.wait_for(send_task, timeout=60)
+        return received
+    finally:
+        graph.stop()
+        await drive

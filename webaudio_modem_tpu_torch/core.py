@@ -1,9 +1,12 @@
-"""Core contracts of the port: signal quality, events, the modulator ABC.
+"""Core contracts of the port: signal quality, events, the modulator,
+data-channel, audio-processor and transport ABCs.
 
-The port's own copy of the parts of ``webaudio_modem_tpu/core.py`` it
-uses (``SignalQuality``, ``Event``, ``EventEmitter``, ``IModulator``),
-with the same fields and semantics.  The transport interfaces and
-``AbortSignal`` arrive with the runtimes (ROADMAP queue 1, slice B).
+The port's own copy of ``webaudio_modem_tpu/core.py`` (``SignalQuality``,
+``TransportStatistics``, ``Event``, ``EventEmitter``, ``IModulator``,
+``IDataChannel``, ``IAudioProcessor``, ``ITransport`` and
+``AUDIO_CHUNK_SIZE``), with the same fields, defaults, abstract methods
+and semantics.  Async surfaces use asyncio and ``utils.abort``; samples
+cross the host boundary as numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +16,12 @@ import dataclasses
 from typing import Any, Callable, Dict, Generic, List, Optional, TypeVar
 
 import numpy as np
+
+from webaudio_modem_tpu_torch.utils.abort import AbortSignal
+
+# The WebAudio render quantum: the smallest streaming granularity of the
+# simulated audio graph.
+AUDIO_CHUNK_SIZE = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +33,22 @@ class SignalQuality:
     eye_opening: float = 0.0      # Eye pattern opening (0-1)
     phase_jitter: float = 0.0     # Phase jitter (radians)
     frequency_offset: float = 0.0  # Frequency offset (Hz)
+
+
+@dataclasses.dataclass
+class TransportStatistics:
+    """Transport statistics."""
+
+    packets_sent: int = 0
+    packets_received: int = 0
+    packets_retransmitted: int = 0
+    packets_dropped: int = 0
+    bytes_transferred: int = 0
+    error_rate: float = 0.0
+    average_round_trip_time: float = 0.0
+
+    def copy(self) -> "TransportStatistics":
+        return dataclasses.replace(self)
 
 
 class Event:
@@ -105,3 +130,70 @@ class IModulator(EventEmitter, Generic[TConfig], metaclass=abc.ABCMeta):
 
     def get_signal_quality(self) -> SignalQuality:
         return SignalQuality()
+
+
+class IDataChannel(metaclass=abc.ABCMeta):
+    """Async data channel contract.  The transport layer talks only to
+    this interface; it never sees audio samples."""
+
+    @abc.abstractmethod
+    async def modulate(self, data: bytes,
+                       signal: Optional[AbortSignal] = None) -> None:
+        """Modulate ``data`` into the outgoing audio stream; resolves
+        once the signal has fully played out."""
+
+    @abc.abstractmethod
+    async def demodulate(self,
+                         signal: Optional[AbortSignal] = None) -> bytes:
+        """Return buffered demodulated bytes, waiting until at least one
+        byte is available."""
+
+    @abc.abstractmethod
+    async def reset(self) -> None:
+        ...
+
+
+class IAudioProcessor(metaclass=abc.ABCMeta):
+    """Realtime processor contract.  ``process`` is driven with
+    fixed-size sample quanta by the simulated audio graph
+    (runtime/audio_graph.py)."""
+
+    @abc.abstractmethod
+    def process(self, inputs: np.ndarray, outputs: np.ndarray) -> bool:
+        ...
+
+
+class ITransport(EventEmitter, metaclass=abc.ABCMeta):
+    """Reliable transport contract."""
+
+    transport_name: str = "transport"
+
+    def __init__(self, data_channel: IDataChannel) -> None:
+        super().__init__()
+        self.data_channel = data_channel
+        self.statistics = TransportStatistics()
+
+    @abc.abstractmethod
+    async def send_data(self, data: bytes,
+                        signal: Optional[AbortSignal] = None) -> None:
+        ...
+
+    @abc.abstractmethod
+    async def receive_data(self,
+                           signal: Optional[AbortSignal] = None) -> bytes:
+        ...
+
+    @abc.abstractmethod
+    async def send_control(self, command: str) -> None:
+        ...
+
+    @abc.abstractmethod
+    def is_ready(self) -> bool:
+        ...
+
+    def get_statistics(self) -> TransportStatistics:
+        return self.statistics.copy()
+
+    def reset(self) -> None:
+        self.statistics = TransportStatistics()
+        self.emit("reset")

@@ -22,6 +22,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from webaudio_modem_tpu_torch.utils.device import resolve_device
+
 SQRT2 = math.sqrt(2.0)
 
 
@@ -110,8 +112,11 @@ def sinc_bandpass(center_freq: float, bandwidth: float, sample_rate: float,
 # Batched streaming filters (torch)
 # ---------------------------------------------------------------------------
 
-def biquad_init_state(batch_shape=(), device="cpu"):
-    z = torch.zeros(batch_shape, dtype=torch.float32, device=device)
+def biquad_init_state(batch_shape=(), device="cuda"):
+    """Zeroed (x1, x2, y1, y2) biquad state of ``batch_shape`` on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    z = torch.zeros(batch_shape, dtype=torch.float32,
+                    device=resolve_device(device))
     return (z, z.clone(), z.clone(), z.clone())
 
 
