@@ -32,7 +32,11 @@ it builds with nvcc first (one nvcc per source, all at once):
   * BASELINE config 3, XModem end to end over simulated audio: two
     ``FSKProcessor``s on one ``AudioGraph`` at B = 1, over ``FSKCore``
     (K1 + K2), ``PSKCore`` (K6 + K2) and ``SoftModemCore`` (K1 in its
-    csum mode + K3).
+    csum mode + K3);
+  * the BASELINE north-star topology: 4096 concurrent XModem sessions
+    over one ``DeviceFarmHub`` (the wire a tensor ring on the card, K1 +
+    K2 per direction a quantum, the native deframer on the host), a
+    256-session ``FarmLoopbackHub`` and a DBPSK hub (K6 + K2).
 
 Phases:
 
@@ -148,7 +152,23 @@ Phases:
      per transfer the audio and wall seconds and the median / p99 of one
      graph step against the 10.67 ms quantum; the hello again paced at
      the audio clock (late quanta counted); the hello receiver's quanta
-     replayed through the plain versions on the CPU, equal call by call.
+     replayed through the plain versions on the CPU, equal call by call;
+ 19. the farm hubs (``runtime/device_hub.py``, ``runtime/farm_channel.py``):
+     (a) DeviceFarmHub at B = 4096 with farm_endurance's settings
+     (40-byte payloads, on-device AWGN 1e-4, quantum 4800, a 16-quantum
+     ring), a warm-up transfer, then one round of 4096 XModem transfers
+     each way, every payload exact: retransmissions, audio and wall
+     seconds, the quantum's wall (median / p99) against 100 ms, the
+     hub's timers, K1 and K2 launches a quantum (one each per
+     direction), peak device memory, and a torch.profiler capture of a
+     third round (the device's busy share); (b) FarmLoopbackHub at
+     B = 256, one round exact; (c) a DBPSK FarmLoopbackHub at B = 16,
+     exact, launching K6 and K2 and no K1; (d) wire 0's first 16 quanta
+     of (a), as its demodulator got them, replayed through the plain
+     versions on the CPU, the same bytes and frames quantum by quantum;
+     (e) (a)'s drained bytes through the native deframer and the Python
+     one (``force_python``), the same events as the hub's.  Any ERROR
+     record of the port's loggers fails the phase.
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
 CUDA device it fails in phase 1 and prints no result.  The line before
@@ -3229,6 +3249,526 @@ def phase_xmodem_audio(device, card):
     return total, results
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the farm hubs
+# ---------------------------------------------------------------------------
+
+HUB_BATCH = 4096                  # examples/farm_endurance.py's defaults
+HUB_PAYLOAD = 40
+HUB_NOISE = 1e-4
+HUB_QUANTUM = 4800
+HUB_RING_QUANTA = 16
+# XModem's timeout in the measured rounds: four times the longest
+# protocol wait seen at B = 4096 (~10 quanta of up to ~250 ms while 4096
+# sessions handle their events; a 3 s timeout fired spuriously there),
+# and a third of farm_endurance's 30 s: the hub runs ~20 x faster than
+# real time between events, so each lost packet's resend idles the
+# whole timeout in wall time
+HUB_TIMEOUT_MS = 10000
+LOOPBACK_BATCH = 256              # the host-playout milestone
+PSK_HUB_BATCH = 16
+REPLAY_QUANTA = 16                # wire 0's first quanta, replayed on the CPU
+PROFILE_QUANTA = 6                # quanta of the third round under the profiler
+HUB_TIMERS = ("farm_hub.host_tx", "farm_hub.chunk", "farm_hub.fetch_wait",
+              "farm_hub.host_drain", "farm_hub.yield_pump")
+
+
+class _HubTrap:
+    """A logging handler on the port's loggers (the hub, XModem): any
+    ERROR record fails the phase."""
+
+    def __init__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                self.records.append(inner.format(record))
+
+        self.records = []
+        self.handler = Handler(logging.ERROR)
+        logging.getLogger("webaudio_modem_tpu_torch").addHandler(self.handler)
+
+    def close(self):
+        import logging
+
+        logging.getLogger("webaudio_modem_tpu_torch").removeHandler(
+            self.handler)
+        if self.records:
+            raise RuntimeError(f"hub errors: {self.records[:3]}")
+
+
+class _HubRecorder:
+    """Spies on a hub: the host wall of every ``step()``, the period
+    between step starts and whether the step was busy (a transmission
+    queued or playing, as ``run()`` decides idleness); for side b, per
+    quantum the bytes drained and the deframer's events (``quanta``:
+    [counts, bytes, events]) and, in order with them, the resets of its
+    channels (``log``: ("drain", quantum) / ("reset", channel)); the
+    frames wire ``wire`` handed its demodulator over the first ``keep``
+    quanta (copied on the device, no sync)."""
+
+    def __init__(self, hub, wire=0, keep=0):
+        import torch
+
+        self.step_ms, self.period_ms, self.busy = [], [], []
+        self.quanta, self.log = [], []
+        self.frames = (torch.empty((keep, hub.quantum), dtype=torch.float32,
+                                   device=hub.device) if keep else None)
+        self.n_frames = 0
+        self._last = None
+        self._waiters = []
+        step, drain = hub.step, hub._drain
+        dfr = hub._deframers["b"]
+        dfr_drain, dfr_reset = dfr.drain, dfr.reset
+
+        def timed_step():
+            t0 = time.perf_counter()
+            if self._last is not None:
+                self.period_ms.append((t0 - self._last) * 1e3)
+            self._last = t0
+            self.busy.append(hub._tx_active())
+            step()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            for w in [w for w in self._waiters if w[0] <= hub.steps]:
+                self._waiters.remove(w)
+                if not w[1].done():
+                    w[1].set_result(None)
+
+        def spy_drain(rx_side, pending):
+            if rx_side == "b":
+                counts, vals = pending.ready()
+                self.log.append(("drain", len(self.quanta)))
+                self.quanta.append([counts.copy(), vals.copy()
+                                    if counts.any() else None, []])
+            drain(rx_side, pending)
+
+        def spy_reset(channel):
+            self.log.append(("reset", channel))
+            dfr_reset(channel)
+
+        def spy_deframer(vals, counts):
+            ev = dfr_drain(vals, counts)
+            self.quanta[-1][2] = ev
+            return ev
+
+        hub.step, hub._drain = timed_step, spy_drain
+        dfr.drain, dfr.reset = spy_deframer, spy_reset
+        if keep and hasattr(hub, "_inner"):
+            inner = hub._inner
+
+            def spy_inner(state, frame):
+                if state is hub._states["b"] and self.n_frames < keep:
+                    self.frames[self.n_frames].copy_(frame[wire])
+                    self.n_frames += 1
+                return inner(state, frame)
+
+            hub._inner = spy_inner
+
+    def reset_timing(self):
+        self.step_ms, self.period_ms, self.busy = [], [], []
+        self._last = None
+
+    def stats(self):
+        """Median / p99 of the quantum's period over the busy steps and
+        over all, and of ``step()`` alone over the busy steps."""
+        busy_p = [p for p, b in zip(self.period_ms, self.busy[:-1]) if b]
+        busy_s = [t for t, b in zip(self.step_ms, self.busy) if b]
+        return {"busy_steps": sum(self.busy), "steps": len(self.busy),
+                "max_period_ms": max(self.period_ms, default=float("nan")),
+                "period_median_ms": _pct(busy_p, 0.5),
+                "period_p99_ms": _pct(busy_p, 0.99),
+                "all_period_median_ms": _pct(self.period_ms, 0.5),
+                "all_period_p99_ms": _pct(self.period_ms, 0.99),
+                "step_median_ms": _pct(busy_s, 0.5),
+                "step_p99_ms": _pct(busy_s, 0.99)}
+
+    def after_steps(self, hub, n):
+        """A future resolved once ``n`` more hub steps have run."""
+        import asyncio
+
+        fut = asyncio.get_running_loop().create_future()
+        self._waiters.append((hub.steps + n, fut))
+        return fut
+
+
+async def _hub_round(hub, senders, receivers, payloads):
+    """One round: every receiver's ``receive_data`` and every sender's
+    ``send_data`` concurrently; returns the received payloads."""
+    import asyncio
+
+    recv = [asyncio.ensure_future(r.receive_data()) for r in receivers]
+    await asyncio.sleep(0)
+    await asyncio.gather(*(s.send_data(p)
+                           for s, p in zip(senders, payloads)))
+    return await asyncio.gather(*recv)
+
+
+def _pct(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(q * len(v)))] if v else float("nan")
+
+
+def _timer_deltas(before):
+    from webaudio_modem_tpu_torch.utils.trace import metrics
+
+    now = metrics.snapshot()["timings"]
+    out = {}
+    for name in HUB_TIMERS:
+        a, b = before.get(name), now.get(name)
+        if b is None:
+            continue
+        n = b["count"] - (a["count"] if a else 0)
+        tot = b["total_s"] - (a["total_s"] if a else 0.0)
+        out[name] = {"count": n, "mean_ms": tot * 1e3 / max(n, 1)}
+    return out
+
+
+def _hub_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _hub_profile(prof, steps, step_wall_ms):
+    """From a torch.profiler capture of ``steps`` hub steps: per step
+    (both directions) the device's kernels, copies and busy time,
+    against ``step_wall_ms``, the unprofiled median period of a step."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    def us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if getattr(e, attr, None) is not None:
+                return getattr(e, attr)
+        return 0.0
+
+    copies = [e for e in dev if "Memcpy" in e.key or "Memset" in e.key]
+    busy_ms = sum(us(e) for e in dev) / 1e3 / steps
+    return {"steps": steps,
+            "kernels_per_step": sum(e.count for e in dev
+                                    if e not in copies) / steps,
+            "copies_per_step": sum(e.count for e in copies) / steps,
+            "device_ms_per_step": busy_ms,
+            "busy_share": busy_ms / step_wall_ms,
+            "top": [(e.key[:60], us(e) / 1e3 / steps, e.count / steps)
+                    for e in sorted(dev, key=us, reverse=True)[:6]]}
+
+
+def _replay_wire(rec, params, wire=0):
+    """Wire ``wire``'s first recorded quanta (side b, the frames its
+    demodulator was handed, channel noise included) through the plain
+    versions on the CPU: the bytes per quantum and the deframer's events
+    (the port's Python parser) must equal what the hub drained."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.native.deframer import Deframer
+    from webaudio_modem_tpu_torch.ops import fsk_demod
+
+    frames = rec.frames[:rec.n_frames].cpu()
+    state = fsk_demod.init_state(params, 1, "cpu")
+    dfr = Deframer(1, force_python=True)
+    n_bytes = 0
+    for k in range(rec.n_frames):
+        state, out = fsk_demod.demod_chunk(params, 0, state,
+                                           frames[k][None], plain=True)
+        got = bytes(out.bytes_out[0, :int(out.byte_count[0])].numpy())
+        counts, vals, events = rec.quanta[k]
+        want = b"" if vals is None else bytes(vals[wire, :counts[wire]])
+        if got != want:
+            raise RuntimeError(f"replay quantum {k}: plain {got!r} != "
+                               f"kernels {want!r}")
+        ev = dfr.drain(np.frombuffer(got, np.uint8)[None].copy()
+                       if got else np.zeros((1, 1), np.uint8),
+                       np.asarray([len(got)], np.int32))
+        hub_ev = [f for ch, f in events if ch == wire]
+        if [f for _, f in ev] != hub_ev:
+            raise RuntimeError(f"replay quantum {k}: frames {ev} != "
+                               f"{hub_ev}")
+        n_bytes += len(got)
+    return rec.n_frames, n_bytes
+
+
+def _deframer_check(rec, batch):
+    """Every drained quantum of side b, with the channel resets between
+    them, through a native deframer and a ``force_python`` one: the same
+    events, and the hub's own."""
+    from webaudio_modem_tpu_torch.native.deframer import Deframer
+
+    native, plain = Deframer(batch), Deframer(batch, force_python=True)
+    n_events = 0
+    for op, k in rec.log:
+        if op == "reset":       # XModem flushed a channel after an error
+            native.reset(k)
+            plain.reset(k)
+            continue
+        counts, vals, hub_ev = rec.quanta[k]
+        if not counts.any():    # the hub does not drain an empty quantum
+            continue
+        a = native.drain(vals, counts)
+        b = plain.drain(vals, counts)
+        if a != b or a != hub_ev:
+            raise RuntimeError(f"quantum {k}: native deframer {a[:3]} != "
+                               f"force_python {b[:3]} or the hub's "
+                               f"{hub_ev[:3]}")
+        n_events += len(a)
+    return len(rec.quanta), n_events
+
+
+def _print_round(r, B, card):
+    """Print one round of (a) and check its launches."""
+    want = {"fsk_seq": 2 * r["steps"], "fsk_framing": 2 * r["steps"]}
+    got = {k: v for k, v in r["launches"].items() if v}
+    if got != want:
+        raise RuntimeError(f"hub launches {got} != {want} "
+                           "(one K1 and one K2 per direction a step)")
+    tm = r["timers"]
+    print(f"  DeviceFarmHub B={B} round {r['direction']}: {B} payloads "
+          f"exact, {r['retransmitted']} retransmissions; "
+          f"{r['audio_s']:.1f} s of audio in {r['wall_s']:.3f} s "
+          f"wall, {r['steps']} quanta ({r['busy_steps']} busy); per busy "
+          f"quantum (both directions) median {r['period_median_ms']:.2f} "
+          f"ms, p99 {r['period_p99_ms']:.2f} ms against 100 ms (all "
+          f"quanta {r['all_period_median_ms']:.2f} / "
+          f"{r['all_period_p99_ms']:.2f}, max {r['max_period_ms']:.2f}; "
+          f"step() alone "
+          f"{r['step_median_ms']:.2f} / {r['step_p99_ms']:.2f}); "
+          "timers per call: " + ", ".join(
+              f"{k.split('.')[1]} {v['mean_ms']:.2f} ms x {v['count']}"
+              for k, v in tm.items())
+          + f"; K1 {r['k1_per_quantum']:.2f} and K2 "
+          f"{r['k2_per_quantum']:.2f} launches a quantum [{card}]",
+          flush=True)
+
+
+def _device_hub_run(device, card):
+    """(a) DeviceFarmHub at B = 4096: warm-up, then one round each way."""
+    import asyncio
+
+    import torch
+
+    from webaudio_modem_tpu_torch.examples.farm_endurance import \
+        round_payloads
+    from webaudio_modem_tpu_torch.models.config import (DEFAULT_FSK_CONFIG,
+                                                        FSKParams)
+    from webaudio_modem_tpu_torch.runtime.device_hub import DeviceFarmHub
+    from webaudio_modem_tpu_torch.sim import make_device_awgn
+    from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
+    from webaudio_modem_tpu_torch.utils.trace import metrics
+
+    B = HUB_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hub = DeviceFarmHub(DEFAULT_FSK_CONFIG, B, quantum=HUB_QUANTUM,
+                        ring_quanta=HUB_RING_QUANTA,
+                        device_channel_fn=make_device_awgn(HUB_NOISE),
+                        device=device)
+    rec = _HubRecorder(hub, wire=0, keep=REPLAY_QUANTA)
+    ta = [XModemTransport(hub.channel("a", i)) for i in range(B)]
+    tb = [XModemTransport(hub.channel("b", i)) for i in range(B)]
+    out = {"batch": B}
+
+    async def drive():
+        pump = asyncio.ensure_future(hub.run())
+        try:
+            for t in (ta[0], tb[0]):
+                t.configure({"timeout_ms": 600000})
+            got = await _hub_round(hub, [ta[0]], [tb[0]],
+                                   [bytes(HUB_PAYLOAD)])
+            if got != [bytes(HUB_PAYLOAD)]:
+                raise RuntimeError("hub warm-up transfer failed")
+            out["warmup_steps"] = hub.steps
+            print(f"  warm-up transfer on wire 0: {hub.steps} quanta, step "
+                  f"median {_pct(rec.step_ms, 0.5):.2f} ms", flush=True)
+            for t in ta + tb:
+                t.configure({"timeout_ms": HUB_TIMEOUT_MS})
+            rounds = []
+            for rnd, (snd, rcv) in enumerate(((ta, tb), (tb, ta))):
+                payloads = round_payloads(rnd, B, HUB_PAYLOAD)
+                rec.reset_timing()
+                before = metrics.snapshot()["timings"]
+                _zero_all_launches()
+                retx0 = sum(t.get_statistics().packets_retransmitted
+                            for t in snd)
+                steps0, t0 = hub.steps, time.perf_counter()
+                got = await _hub_round(hub, snd, rcv, payloads)
+                wall = time.perf_counter() - t0
+                launches = _all_launches()
+                steps = hub.steps - steps0
+                bad = sum(g != p for g, p in zip(got, payloads))
+                if bad:
+                    raise RuntimeError(f"round {rnd}: {bad} payloads wrong")
+                window = rec.period_ms[:PROFILE_QUANTA]
+                rounds.append({
+                    **rec.stats(),
+                    # the quanta the profiled round captures, unprofiled
+                    "window_ms": sum(window) / max(len(window), 1),
+                    "direction": "a->b" if rnd == 0 else "b->a",
+                    "steps": steps, "audio_s": steps * HUB_QUANTUM / 48000,
+                    "wall_s": wall, "launches": launches,
+                    "k1_per_quantum": launches["fsk_seq"] / steps,
+                    "k2_per_quantum": launches["fsk_framing"] / steps,
+                    "retransmitted": sum(
+                        t.get_statistics().packets_retransmitted
+                        for t in snd) - retx0,
+                    "timers": _timer_deltas(before)})
+                _print_round(rounds[-1], B, card)
+            out["rounds"] = rounds
+            # one more round a->b, its first PROFILE_QUANTA quanta under
+            # torch.profiler, in the same event loop: the channels' queues
+            # keep the loop they first waited on (the reference's
+            # _LeanQueue, copied; ROADMAP queue 3).  The profiler starts
+            # before any session waits (its start held the loop for
+            # seconds, past the timeouts of every waiting session)
+            out["retransmitted"] = sum(
+                t.get_statistics().packets_retransmitted for t in ta + tb)
+            payloads = round_payloads(2, B, HUB_PAYLOAD)
+            prof = _hub_profiler()
+            t0 = time.perf_counter()
+            prof.start()
+            start_s = time.perf_counter() - t0
+            task = asyncio.ensure_future(_hub_round(hub, ta, tb, payloads))
+            t0 = time.perf_counter()
+            await rec.after_steps(hub, PROFILE_QUANTA)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_QUANTA
+            t0 = time.perf_counter()
+            prof.stop()
+            stop_s = time.perf_counter() - t0
+            if await task != payloads:
+                raise RuntimeError("profiled round: payloads wrong")
+            out["profiled_round_retransmitted"] = sum(
+                t.get_statistics().packets_retransmitted
+                for t in ta + tb) - out["retransmitted"]
+            out["profile"] = _hub_profile(
+                prof, PROFILE_QUANTA, rounds[0]["window_ms"])
+            out["profile"].update(profiled_quantum_wall_ms=wall_ms,
+                                  start_s=start_s, stop_s=stop_s)
+        finally:
+            hub.stop()
+            await pump
+
+    asyncio.run(drive())
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"  retransmissions {out['retransmitted']} in the warm-up and "
+          f"the two rounds, {out['profiled_round_retransmitted']} in the "
+          f"profiled round; peak device memory "
+          f"{out['peak_mib']:.1f} MiB, warm-up {out['warmup_steps']} quanta")
+
+    prof = out["profile"]
+    print(f"  profile of {prof['steps']} quanta of a round, per quantum "
+          f"(both directions; {prof['profiled_quantum_wall_ms']:.2f} ms "
+          f"of wall each under the profiler): "
+          f"{prof['kernels_per_step']:.1f} "
+          f"kernels, {prof['copies_per_step']:.1f} copies, "
+          f"{prof['device_ms_per_step']:.4f} ms of device time: busy "
+          f"{100 * prof['busy_share']:.1f} % of the same quanta of round "
+          f"a->b unprofiled ({out['rounds'][0]['window_ms']:.2f} ms each), "
+          f"{100 * prof['device_ms_per_step'] / prof['profiled_quantum_wall_ms']:.1f}"
+          f" % of the profiled quanta's wall; the profiler's start "
+          f"{prof['start_s']:.2f} s, stop {prof['stop_s']:.2f} s "
+          f"[{card}]")
+    for key, ms, n in prof["top"]:
+        print(f"    {ms:8.4f} ms/quantum  {n:6.2f} per quantum  {key}")
+    t0 = time.perf_counter()
+    n_q, n_bytes = _replay_wire(rec, FSKParams.from_config(
+        DEFAULT_FSK_CONFIG))
+    out["replay"] = {"quanta": n_q, "bytes": n_bytes,
+                     "seconds": time.perf_counter() - t0}
+    print(f"  (d) wire 0's first {n_q} quanta replayed through the plain "
+          f"versions on the CPU: the same {n_bytes} bytes and frames "
+          f"quantum by quantum ({out['replay']['seconds']:.1f} s)")
+    t0 = time.perf_counter()
+    n_drains, n_events = _deframer_check(rec, B)
+    out["deframer"] = {"drains": n_drains, "events": n_events,
+                       "seconds": time.perf_counter() - t0}
+    print(f"  (e) native deframer == force_python deframer == the hub's "
+          f"events over {n_drains} drained quanta of side b, {n_events} "
+          f"events ({out['deframer']['seconds']:.1f} s)")
+    return out
+
+
+def _loopback_hub_run(device, card, config, batch, label, kernels):
+    """(b) / (c): one round a->b over a FarmLoopbackHub on the card."""
+    import asyncio
+
+    from webaudio_modem_tpu_torch.runtime.farm_channel import FarmLoopbackHub
+    from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
+
+    hub = FarmLoopbackHub(config, batch, device=device)
+    ta = [XModemTransport(hub.channel("a", i)) for i in range(batch)]
+    tb = [XModemTransport(hub.channel("b", i)) for i in range(batch)]
+    for t in ta + tb:
+        t.configure({"timeout_ms": HUB_TIMEOUT_MS})
+    payloads = [bytes([i & 0xFF]) + f"{label} {i:04d} ".encode()
+                + bytes((i + j) & 0xFF for j in range(24))
+                for i in range(batch)]
+
+    async def drive():
+        pump = asyncio.ensure_future(hub.run())
+        try:
+            return await _hub_round(hub, ta, tb, payloads)
+        finally:
+            hub.stop()
+            await pump
+
+    _zero_all_launches()
+    t0 = time.perf_counter()
+    got = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    if got != payloads:
+        raise RuntimeError(f"{label}: {sum(g != p for g, p in zip(got, payloads))}"
+                           " payloads wrong")
+    want = {k: 2 * hub.steps for k in kernels}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise RuntimeError(f"{label} launches {launches} != {want}")
+    retx = sum(t.get_statistics().packets_retransmitted for t in ta)
+    out = {"batch": batch, "steps": hub.steps,
+           "audio_s": hub.steps * hub.quantum / 48000, "wall_s": wall,
+           "launches": launches, "retransmitted": retx}
+    print(f"  {label} B={batch}: {batch} payloads exact; "
+          f"{out['audio_s']:.1f} s of audio in {wall:.3f} s wall, "
+          f"{hub.steps} quanta, {retx} retransmissions; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    return out
+
+
+def phase_farm_hubs(device, card):
+    """(a) DeviceFarmHub at B = 4096, farm_endurance's settings, one round
+    each way, measured; (b) FarmLoopbackHub at B = 256; (c) a DBPSK
+    FarmLoopbackHub (K6 + K2, no K1); (d) wire 0's first quanta of (a)
+    replayed on the CPU; (e) the native deframer against the Python one
+    on (a)'s drained bytes.  Returns the launches by path and the
+    results."""
+    from webaudio_modem_tpu_torch.models.config import DEFAULT_FSK_CONFIG
+    from webaudio_modem_tpu_torch.models.psk import PSKConfig
+
+    trap = _HubTrap()
+    t_phase = time.perf_counter()
+    try:
+        dev = _device_hub_run(device, card)
+        loop = _loopback_hub_run(device, card, DEFAULT_FSK_CONFIG,
+                                 LOOPBACK_BATCH, "FarmLoopbackHub",
+                                 ("fsk_seq", "fsk_framing"))
+        psk = _loopback_hub_run(device, card, PSKConfig(), PSK_HUB_BATCH,
+                                "DBPSK FarmLoopbackHub",
+                                ("psk_seq", "fsk_framing"))
+    finally:
+        trap.close()
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 19: {seconds:.1f} s [{card}]")
+    launches = {"farm_hub_device": {}, "farm_hub_loopback": loop["launches"],
+                "farm_hub_dbpsk": psk["launches"]}
+    for r in dev["rounds"]:
+        for k, v in r["launches"].items():
+            launches["farm_hub_device"][k] = \
+                launches["farm_hub_device"].get(k, 0) + v
+    return launches, {"device_hub": dev, "loopback_hub": loop,
+                      "dbpsk_hub": psk, "seconds": seconds}
+
+
 def _host_ops(label, run, calls, top=8):
     """The host side of ``run()`` (``calls`` calls) under torch.profiler,
     CPU only: kernel launches per call and the operators with the most
@@ -3332,6 +3872,8 @@ def main() -> int:
     slice_out = phase_v21_impairments_checkpoints(device, rng, card)
     print("phase 18: BASELINE config 3, XModem over simulated audio")
     xmodem_launches, xmodem_out = phase_xmodem_audio(device, card)
+    print("phase 19: the farm hubs, thousands of XModem sessions")
+    hub_launches, hub_out = phase_farm_hubs(device, card)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib",
@@ -3346,7 +3888,9 @@ def main() -> int:
                    "blind": blind_launches.get(name, 0),
                    "ber": ber_launches.get(name, 0),
                    "tpu_route (chip_smoke)": route_launches.get(name, 0),
-                   "xmodem_audio": xmodem_launches.get(name, 0)}
+                   "xmodem_audio": xmodem_launches.get(name, 0),
+                   **{path: counts.get(name, 0)
+                      for path, counts in hub_launches.items()}}
         if not any(by_path.values()):
             raise RuntimeError(f"{name}: no launch on a main path")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3367,6 +3911,7 @@ def main() -> int:
     kernels = [
         row("fsk_seq", "fsk_seq.cu", "fsk_seq.py:131", kernel_ms["fsk_seq"],
             {"xmodem_audio_main_path": xmodem_out,
+             "farm_hubs_main_path": hub_out,
              "modes": {
                 "all streams (hard path)": "the row's numbers",
                 "emit_csum, bits/amps dropped (soft path)":

@@ -32,7 +32,8 @@ from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
                                                   fsk_framing, fsk_seq,
                                                   psk_seq, viterbi)
 from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
-from webaudio_modem_tpu_torch.runtime import FSKProcessor
+from webaudio_modem_tpu_torch.runtime import (DeviceFarmHub, FSKProcessor,
+                                              FarmLoopbackHub)
 from webaudio_modem_tpu_torch.sim import ber, impairments
 
 REPO = Path(__file__).resolve().parents[2]
@@ -107,7 +108,16 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
     "webaudio_modem_tpu_torch.transports.xmodem",
     "webaudio_modem_tpu_torch.transports.xmodem.types",
     "webaudio_modem_tpu_torch.transports.xmodem.packet",
-    "webaudio_modem_tpu_torch.transports.xmodem.xmodem"])
+    "webaudio_modem_tpu_torch.transports.xmodem.xmodem",
+    "webaudio_modem_tpu_torch.native",
+    "webaudio_modem_tpu_torch.native.deframer",
+    "webaudio_modem_tpu_torch.native.crc16_native",
+    "webaudio_modem_tpu_torch.runtime.farm_channel",
+    "webaudio_modem_tpu_torch.runtime.device_hub",
+    "webaudio_modem_tpu_torch.examples",
+    "webaudio_modem_tpu_torch.examples.farm_transport_demo",
+    "webaudio_modem_tpu_torch.examples.farm_endurance",
+    "webaudio_modem_tpu_torch.examples.latency_probe"])
 def test_new_modules_are_walked_behind_the_blocker(module):
     code = _BLOCKED_IMPORTS.replace(
         'print(len(names), "modules clean")',
@@ -130,6 +140,9 @@ def test_new_modules_are_walked_behind_the_blocker(module):
     impairments.clock_skew_sweep, V21Station.__init__, V21Duplex.__init__,
     checkpoint.load_state, checkpoint.loads_state, ModemFarm.restore,
     filters.biquad_init_state, FSKProcessor.__init__,
+    fsk_mod.modulate, fsk_mod.modulate_batch, psk.modulate,
+    psk.modulate_batch, fsk_demod.init_state, psk.init_state,
+    FarmLoopbackHub.__init__, DeviceFarmHub.__init__,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -163,6 +176,14 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
             fsk_demod.init_state(params, 1, "cpu"), FSKConfig())),
         lambda: filters.biquad_init_state((2,)),
         lambda: FSKProcessor(),
+        lambda: fsk_mod.modulate(params, b"x"),
+        lambda: fsk_mod.modulate_batch(params, [b"x"]),
+        lambda: psk.modulate(params, b"x"),
+        lambda: psk.modulate_batch(params, [b"x"]),
+        lambda: fsk_demod.init_state(params),
+        lambda: psk.init_state(params, batch=1),
+        lambda: FarmLoopbackHub(FSKConfig(), 2),
+        lambda: DeviceFarmHub(FSKConfig(), 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
@@ -170,24 +191,28 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
 
 
 def test_framed_xmodem_path_names_nothing_of_the_jax_package():
-    """The JAX package's XModem reaches its native deframer on the frame
-    path; the port's copy refuses a framed channel instead, and its
-    source names no module of the JAX package."""
-    import asyncio
+    """XModem's frame path reaches the port's own native deframer: its
+    source and the deframer's name no module of the JAX package, and a
+    channel that advertises ``supports_frames`` takes the frame path."""
     import re
 
+    from webaudio_modem_tpu_torch.native import deframer
     from webaudio_modem_tpu_torch.runtime.data_channel import (
         QueueDataChannel)
     from webaudio_modem_tpu_torch.transports.xmodem import xmodem
 
-    source = Path(xmodem.__file__).read_text()
-    assert not re.search(r"webaudio_modem_tpu\.", source)
+    for mod in (xmodem, deframer):
+        source = Path(mod.__file__).read_text()
+        assert not re.search(r"webaudio_modem_tpu\.", source)
+    assert "webaudio_modem_tpu_torch.native import deframer" in \
+        Path(xmodem.__file__).read_text()
     channel = QueueDataChannel()
     channel.supports_frames = True
     transport = xmodem.XModemTransport(channel)
-    for op in (transport.receive_data, lambda: transport.send_data(b"x")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            asyncio.run(op())
+    assert transport._frames_supported()
+    hub = FarmLoopbackHub(FSKConfig(), 2, device="cpu")
+    assert xmodem.XModemTransport(hub.channel("a", 0))._frames_supported()
+    assert not xmodem.XModemTransport(QueueDataChannel())._frames_supported()
     assert transport.is_ready()
 
 

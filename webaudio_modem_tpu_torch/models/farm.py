@@ -28,10 +28,12 @@ from webaudio_modem_tpu_torch.utils.trace import metrics
 
 _FSK_OPS = SimpleNamespace(init_state=fsk_demod.init_state,
                            demod_chunk=fsk_demod.demod_chunk,
+                           make_demod_chunk=fsk_demod.make_demod_chunk,
                            modulate_batch=fsk_mod.modulate_batch,
                            quality_from_state=fsk_demod.quality_from_state)
 _PSK_OPS = SimpleNamespace(init_state=psk.init_state,
                            demod_chunk=psk.demod_chunk,
+                           make_demod_chunk=psk.make_demod_chunk,
                            modulate_batch=psk.modulate_batch,
                            quality_from_state=psk.quality_from_state)
 

@@ -97,7 +97,11 @@ class DemodOut:
     mean_amplitude: torch.Tensor  # f32 [B] mean I/Q amplitude
 
 
-def init_state(params: FSKParams, batch: int, device) -> DemodState:
+def init_state(params: FSKParams, batch: int = 1,
+               device="cuda") -> DemodState:
+    """A fresh carried state of ``batch`` channels on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     W = params.sync_window
     front = torch.zeros((fsk_seq.N_FRONT, batch), dtype=f32, device=device)
@@ -447,9 +451,12 @@ def demod_chunk(params: FSKParams, ds_phase: int, state: DemodState,
                           plain=plain, front=front, ds_acc=ds_acc)
 
 
-def make_demod_chunk(params: FSKParams, ds_phase: int):
+def make_demod_chunk(params: FSKParams, ds_phase: int, donate: bool = True):
     """``demod_chunk`` bound to (params, ds_phase): the counterpart of the
-    reference's jitted step, with no compilation."""
+    reference's jitted step, with no compilation.  ``donate`` is the
+    reference's buffer-donation switch, accepted for its callers: the
+    step returns new state tensors and donates nothing, so the state
+    passed in stays valid for either value."""
     return functools.partial(demod_chunk, params, ds_phase)
 
 
@@ -515,12 +522,13 @@ def quality_calibration(params: FSKParams, state: DemodState, bits, amps,
 
 
 def quality_from_state(params: FSKParams, state: DemodState,
-                       delay_ds: int = 1, calibration=None,
-                       separation=None):
+                       delay_ds: int = 1, family: str = "fsk", *,
+                       calibration=None, separation=None):
     """SignalQuality estimates [B] from the carried accumulators, as
     numpy: (ber, frequency_offset_hz, phase_jitter, eye_opening), each a
     differential measurement against ``calibration``, the family's
-    ``quality_calibration`` tables (None: the FSK family's):
+    ``quality_calibration`` tables (None: those of ``family``, "fsk" or
+    "psk" for DBPSK, whose caller passes ``delay_ds`` = one bit period):
 
     * ``ber``: re-sliced bit errors in the known preamble+SFD window,
       (calibrated peak ratio - measured) over the W - ds valid positions;
@@ -531,13 +539,16 @@ def quality_from_state(params: FSKParams, state: DemodState,
     * ``phase_jitter``: sqrt of the variance above the calibration's;
     * ``eye_opening``: 1 - jitter / (class separation / 4), in [0, 1],
       with ``separation`` in radians (None: the FSK discriminator's level
-      separation); 0 until a frame has synced.
+      separation, or pi for "psk", the constellation points at 0 and pi);
+      0 until a frame has synced.
     """
+    if family not in ("fsk", "psk"):
+        raise ValueError(f"family {family!r}: 'fsk' or 'psk'")
     q = state.quality.detach().to("cpu", torch.float64).numpy()
     lsr, wsum, wsq, wcnt = q
     W = params.sync_window
     n_valid = W - params.ds_samples_per_bit
-    mean_t, var_t, cal_ratio = (_quality_calibration(params)
+    mean_t, var_t, cal_ratio = (_family_calibration(params, family)
                                 if calibration is None else calibration)
     ber = np.where(lsr > 0,
                    np.clip((cal_ratio - lsr) * W / max(n_valid, 1),
@@ -553,7 +564,9 @@ def quality_from_state(params: FSKParams, state: DemodState,
     freq = np.where(have, -(mean - mean_t[idx]) * hz_per_rad, 0.0)
     jitter = np.where(have, np.sqrt(np.maximum(var - var_t[idx], 0.0)),
                       0.0)
-    if separation is None:
+    if separation is None and family == "psk":
+        separation = np.pi
+    elif separation is None:
         dev_hz = abs(params.space_freq - params.mark_freq) / 2.0
         separation = 2.0 * (2.0 * np.pi * dev_hz / params.downsample_rate)
     eye = np.where(have,

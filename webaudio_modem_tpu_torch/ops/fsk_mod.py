@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKParams, _framed_bits
+from webaudio_modem_tpu_torch.utils.device import resolve_device
 
 _TWO_PI = 2.0 * np.pi
 
@@ -153,9 +154,10 @@ def synth_bits_batch(params: FSKParams, bits: np.ndarray, lead: int,
 
 
 def modulate_batch(params: FSKParams, messages: Sequence[bytes],
-                   device) -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """Modulate a batch of equal-length messages -> f32 [B, T] on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     lengths = {len(m) for m in messages}
     if len(lengths) != 1:
         raise ValueError(
@@ -167,7 +169,7 @@ def modulate_batch(params: FSKParams, messages: Sequence[bytes],
     return synth_bits_batch(params, bits, lead, device)
 
 
-def modulate(params: FSKParams, data: bytes, device) -> np.ndarray:
+def modulate(params: FSKParams, data: bytes, device="cuda") -> np.ndarray:
     """Modulate one message on ``device`` -> float32 numpy [T]."""
     return modulate_batch(params, [data], device)[0].cpu().numpy()
 

@@ -29,6 +29,7 @@ import torch
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.ops import fsk_demod, fsk_mod
 from webaudio_modem_tpu_torch.ops.kernels import psk_seq
+from webaudio_modem_tpu_torch.utils.device import resolve_device
 
 _TWO_PI = 2.0 * np.pi
 # the reference PSKDemodState's front-end fields, in the front plane's order
@@ -50,12 +51,13 @@ def psk_params(carrier_frequency: float = 1800.0, baud_rate: int = 1200,
 # ---------------------------------------------------------------------------
 
 def modulate_batch(params: FSKParams, messages: Sequence[bytes],
-                   device) -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """Differentially encoded BPSK on the carrier for a batch of
     equal-length messages -> f32 [B, T] on ``device``, in FSK's signal
     layout (2 bit-times of lead, one byte-time of trailing silence).  The
     per-bit phase offsets are float64 on the host; the sine expansion
-    runs on the device."""
+    runs on the device (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     if len({len(m) for m in messages}) != 1:
         raise ValueError("modulate_batch requires equal-length messages")
     bits = fsk_mod.frame_bits_batch(params, [bytes(m) for m in messages])
@@ -71,7 +73,7 @@ def modulate_batch(params: FSKParams, messages: Sequence[bytes],
                           params.samples_per_bit, (lead, trail), device)
 
 
-def modulate(params: FSKParams, data: bytes, device) -> np.ndarray:
+def modulate(params: FSKParams, data: bytes, device="cuda") -> np.ndarray:
     """Modulate one message on ``device`` -> float32 numpy [T]."""
     return modulate_batch(params, [data], device)[0].cpu().numpy()
 
@@ -94,7 +96,10 @@ class PSKDemodState(fsk_demod.DemodState):
     ring: torch.Tensor
 
 
-def init_state(params: FSKParams, batch: int, device) -> PSKDemodState:
+def init_state(params: FSKParams, batch: int = 1,
+               device="cuda") -> PSKDemodState:
+    """A fresh carried state of ``batch`` channels on ``device`` (the card
+    unless the caller asks for the CPU)."""
     base = fsk_demod.init_state(params, batch, device)
     D = params.ds_samples_per_bit
     return PSKDemodState(
@@ -172,11 +177,13 @@ def quality_from_state(params: FSKParams, state: PSKDemodState):
     the DBPSK calibration, the differential delay of one bit period and
     the class separation pi (constellation points at 0 and pi)."""
     return fsk_demod.quality_from_state(
-        params, state, delay_ds=params.ds_samples_per_bit,
-        calibration=_quality_calibration(params), separation=np.pi)
+        params, state, delay_ds=params.ds_samples_per_bit, family="psk")
 
 
-def make_demod_chunk(params: FSKParams, ds_phase: int):
+def make_demod_chunk(params: FSKParams, ds_phase: int, donate: bool = True):
     """``demod_chunk`` bound to (params, ds_phase): the counterpart of the
-    reference's jitted step, with no compilation."""
+    reference's jitted step, with no compilation.  ``donate`` is the
+    reference's buffer-donation switch, accepted for its callers: the
+    step returns new state tensors and donates nothing, so the state
+    passed in stays valid for either value."""
     return functools.partial(demod_chunk, params, ds_phase)

@@ -1,7 +1,10 @@
 """The port's streaming runtime: the chunked modulator, the realtime
-processor, the in-memory data channels and the simulated audio graph
-(``webaudio_modem_tpu/runtime``).  The farm hubs are not ported yet
-(ROADMAP queue 1, item 9)."""
+processor, the in-memory data channels, the simulated audio graph and
+the hard farm hubs, ``FarmLoopbackHub`` (host playout) and
+``DeviceFarmHub`` (the wire on the card), whose ``FarmDataChannel``s
+carry thousands of ARQ sessions (``webaudio_modem_tpu/runtime``).  The
+soft hubs, ``SoftFarmHub`` and ``BlindSoftFarmHub``, are not ported yet
+(ROADMAP queue 1, item 12)."""
 
 from webaudio_modem_tpu_torch.runtime.chunked_modulator import (  # noqa: F401
     ChunkedModulator,
@@ -17,4 +20,11 @@ from webaudio_modem_tpu_torch.runtime.data_channel import (  # noqa: F401
     LoopbackDataChannel,
     QueueDataChannel,
     make_loopback_pair,
+)
+from webaudio_modem_tpu_torch.runtime.farm_channel import (  # noqa: F401
+    FarmDataChannel,
+    FarmLoopbackHub,
+)
+from webaudio_modem_tpu_torch.runtime.device_hub import (  # noqa: F401
+    DeviceFarmHub,
 )

@@ -11,11 +11,13 @@ fatal, a CRC failure is NAKed after the RX buffer is flushed, and data
 is fragmented at ``max_payload_size`` with one empty fragment for empty
 data.
 
-The JAX package also has a frame path for channels that advertise
-``supports_frames`` (its farm channels, whose native deframer parses the
-wire).  The port has neither yet (ROADMAP queue 1, item 9): such a
-channel is refused with ``NotImplementedError``; every other channel
-takes the byte path, which parses the raw ``demodulate()`` stream.
+Two receive paths share one state machine: the byte path parses the
+raw ``demodulate()`` stream in Python and works over any IDataChannel;
+the frame path, taken when the channel advertises ``supports_frames``
+(the farm hubs' ``FarmDataChannel``, ``runtime/farm_channel.py``),
+consumes the PACKET / CONTROL events that the native deframer
+(``native/deframer.py``) parsed, so draining thousands of channels never
+touches per-byte Python.
 
 The DOM AbortSignal composition (timeout + external + operation
 controller) maps onto utils.abort.
@@ -94,7 +96,6 @@ class XModemTransport(ITransport):
 
     async def send_data(self, data: bytes,
                         signal: Optional[AbortSignal] = None) -> None:
-        self._frames_supported()
         self._ensure_idle("send_data")
         self._operation_controller = AbortController()
         if self._operation_controller.signal.aborted or \
@@ -120,7 +121,6 @@ class XModemTransport(ITransport):
 
     async def receive_data(self,
                            signal: Optional[AbortSignal] = None) -> bytes:
-        self._frames_supported()
         self._ensure_idle("receive_data")
         self._operation_controller = AbortController()
         if self._operation_controller.signal.aborted or \
@@ -301,14 +301,7 @@ class XModemTransport(ITransport):
             signal.detach()
 
     def _frames_supported(self) -> bool:
-        """False for a byte channel; a channel that advertises
-        ``supports_frames`` needs the native deframer's frame path,
-        which the port does not have yet, and is refused."""
-        if getattr(self.data_channel, "supports_frames", False):
-            raise NotImplementedError(
-                "framed data channels (supports_frames) need the native "
-                "deframer, not yet ported (ROADMAP queue 1, item 9)")
-        return False
+        return bool(getattr(self.data_channel, "supports_frames", False))
 
     # -- receive path (xmodem.ts:221-335) -----------------------------------
 
@@ -327,6 +320,8 @@ class XModemTransport(ITransport):
 
     async def _receive_all_packets(
             self, external: Optional[AbortSignal]) -> List[bytes]:
+        if self._frames_supported():
+            return await self._receive_all_packets_framed(external)
         while True:
             self._check_abort(external)
             try:
@@ -430,9 +425,109 @@ class XModemTransport(ITransport):
                 f"Unexpected sequence number: expected "
                 f"{self._recv_expected_sequence}, got {seq}")
 
+    # -- frame fast path (native deframer events) ----------------------------
+
+    async def _receive_all_packets_framed(
+            self, external: Optional[AbortSignal]) -> List[bytes]:
+        """Same state machine as the byte path, driven by parsed wire
+        events instead of raw bytes."""
+        from webaudio_modem_tpu_torch.native import deframer as df
+
+        while True:
+            self._check_abort(external)
+            try:
+                frame = await self._with_timeout(
+                    external,
+                    lambda sig: self.data_channel.next_frame(signal=sig))
+                if frame.kind == df.CONTROL and \
+                        frame.byte == ControlType.EOT:
+                    logger.debug("EOT frame received")
+                    await self.send_control("ACK")
+                    break
+                if frame.kind == df.PACKET:
+                    await self._accept_frame_packet(frame)
+                elif frame.kind == df.BAD_SEQ:
+                    self.statistics.packets_dropped += 1
+                    self.emit("error", Event(
+                        {"error": "Invalid sequence number"}))
+                    raise ValueError("Invalid sequence number")
+                elif frame.kind == df.BAD_CRC:
+                    self.statistics.packets_received += 1
+                    self.statistics.packets_dropped += 1
+                    metrics.incr("xmodem.packets_received")
+                    self.emit("error", Event({"error": "Invalid CRC"}))
+                    raise ValueError("Invalid CRC")
+                else:
+                    logger.debug("frame ignored: %s", frame.kind)
+                    continue
+            except AbortError as error:
+                if self._externally_aborted(external) or \
+                        self._op_aborted() or \
+                        not self._is_timeout_abort(error):
+                    raise
+                self._send_retries += 1
+                if self._send_retries > self.config.max_retries:
+                    raise TimeoutError(
+                        f"Receive failed after max retries: {error}")
+                self._flush_rx()
+                await self.send_control("NAK")
+            except (TimeoutError, ValueError) as error:
+                logger.debug("Error during framed receive: %s", error)
+                self._send_retries += 1
+                if self._send_retries > self.config.max_retries:
+                    raise TimeoutError(
+                        f"Receive failed after max retries: {error}")
+                self._flush_rx()
+                await self.send_control("NAK")
+        return self._recv_data
+
+    async def _accept_frame_packet(self, frame) -> None:
+        """Sequence handling for a CRC-valid parsed packet — identical
+        rules to _receive_and_process_packet (accept / re-ACK duplicate
+        previous / fatal on unexpected)."""
+        seq = frame.seq
+        if seq == self._recv_expected_sequence:
+            self.statistics.packets_received += 1
+            metrics.incr("xmodem.packets_received")
+            self._recv_data.append(frame.payload)
+            self.emit("fragmentReceived", Event({
+                "seq_num": seq,
+                "fragment": frame.payload,
+                "total_fragments": len(self._recv_data),
+                "total_bytes_received": sum(len(d)
+                                            for d in self._recv_data),
+                "timestamp": time.time(),
+            }))
+            self._recv_expected_sequence = \
+                (self._recv_expected_sequence % 255) + 1
+            self._send_retries = 0
+            self._state_changed(State.RECEIVING_SEND_ACK,
+                                f"Sending ACK for sequence {seq}")
+            await self.send_control("ACK")
+            self._state_changed(State.RECEIVING_WAIT_BLOCK,
+                                "Waiting for next block")
+        elif self._is_previous_sequence(seq, self._recv_expected_sequence):
+            self.statistics.packets_dropped += 1
+            logger.debug("Duplicate frame ignored: seq=%d (expected=%d)",
+                         seq, self._recv_expected_sequence)
+            await self.send_control("ACK")
+        else:
+            self.statistics.packets_dropped += 1
+            self.emit("error", Event({
+                "error": "Unexpected sequence number",
+                "expected": self._recv_expected_sequence,
+                "received": seq}))
+            raise ValueError(
+                f"Unexpected sequence number: expected "
+                f"{self._recv_expected_sequence}, got {seq}")
+
     def _flush_rx(self) -> None:
-        """Discard partial RX state before a NAK-retry."""
+        """Discard partial RX state before NAK-retry (xmodem.ts:256-259):
+        byte buffer on the byte path, queued frames + deframer buffer on
+        the frame path."""
         self._recv_buffer = []
+        if self._frames_supported():
+            self.data_channel.flush_frames()
 
     # -- byte-level helpers (xmodem.ts:389-502) ------------------------------
 
@@ -445,6 +540,16 @@ class XModemTransport(ITransport):
                 return
 
     async def _wait_for_control_byte(self, signal: AbortSignal) -> int:
+        if self._frames_supported():
+            from webaudio_modem_tpu_torch.native import deframer as df
+
+            while True:
+                signal.throw_if_aborted()
+                frame = await self.data_channel.next_frame(signal=signal)
+                if frame.kind == df.CONTROL:
+                    logger.debug("Control frame received: %d", frame.byte)
+                    return frame.byte
+                logger.debug("Non-control frame ignored: %s", frame.kind)
         while True:
             signal.throw_if_aborted()
             data = await self.data_channel.demodulate(signal=signal)
@@ -458,6 +563,18 @@ class XModemTransport(ITransport):
     async def _wait_for_ack(self, signal: AbortSignal) -> None:
         """Wait specifically for ACK, ignoring everything else including
         the echo of our own EOT (xmodem.ts:442-470)."""
+        if self._frames_supported():
+            from webaudio_modem_tpu_torch.native import deframer as df
+
+            while True:
+                signal.throw_if_aborted()
+                frame = await self.data_channel.next_frame(signal=signal)
+                if frame.kind == df.CONTROL and \
+                        frame.byte == ControlType.ACK:
+                    logger.debug("ACK frame received")
+                    return
+                logger.debug("Non-ACK frame ignored while waiting: %s",
+                             frame.kind)
         while True:
             signal.throw_if_aborted()
             data = await self.data_channel.demodulate(signal=signal)
