@@ -36,7 +36,13 @@ it builds with nvcc first (one nvcc per source, all at once):
   * the BASELINE north-star topology: 4096 concurrent XModem sessions
     over one ``DeviceFarmHub`` (the wire a tensor ring on the card, K1 +
     K2 per direction a quantum, the native deframer on the host), a
-    256-session ``FarmLoopbackHub`` and a DBPSK hub (K6 + K2).
+    256-session ``FarmLoopbackHub`` and a DBPSK hub (K6 + K2);
+  * the same topology over the soft-FEC wire: 4096 sessions over
+    ``SoftFarmHub`` (cohorts framed and synthesized on the card, one
+    fused window decode per transmission: K1 in its csum mode, K4 twice,
+    K3 twice) and over ``BlindSoftFarmHub`` (K1 per quantum and
+    direction, K5 + K4 + K3 per header or body program), and the FEC
+    frame layer's ``FrameDecoder`` (K3 per decode).
 
 Phases:
 
@@ -168,7 +174,28 @@ Phases:
      versions on the CPU, the same bytes and frames quantum by quantum;
      (e) (a)'s drained bytes through the native deframer and the Python
      one (``force_python``), the same events as the hub's.  Any ERROR
-     record of the port's loggers fails the phase.
+     record of the port's loggers fails the phase;
+ 20. the soft and blind farm hubs (``runtime/soft_hub.py``): (c)
+     ``soft_fsk.frames_synth_device_fn`` equal to ``encode_frames_batch``
+     (torch.equal) at B = 4096 for 1, 46 and 133-byte payloads, both
+     routes timed, and the host-side launches of one TX cohort and of its
+     CRC; (a) SoftFarmHub at B = 4096 with farm_endurance --soft's
+     settings (40-byte payloads, on-device AWGN 1e-4, quantum 4800, a
+     22-quantum ring): a warm-up transfer, one round of 4096 XModem
+     transfers each way, every payload exact, the quantum's wall (median
+     / p99 over the quanta in which a window decodes or a cohort is
+     written), the timers (host_tx / chunk / fetch_wait /
+     soft_finalize), one K1, two K4 and two K3 launches per window
+     decode, frames decoded and erased, peak device memory, and a
+     torch.profiler capture of a third round's first 12 quanta (busy
+     share); (e) wire 0's first 3 windows of side b (channel noise
+     included) replayed through the plain versions on the CPU, the same
+     packed bytes; (b) BlindSoftFarmHub (max_payload 160) the same way:
+     one K1 per direction a quantum, one K5, K4 and K3 per program, the
+     receivers' status (erasures reported); (d) FrameDecoder on the card
+     and on the CPU over 8 coded frames with junk between them: every
+     payload, K3 launched once per decode, the wall.  Any ERROR record of
+     the port's loggers fails (a) and (b).
 
 Every phase raises on failure, so the exit code is non-zero.  Without a
 CUDA device it fails in phase 1 and prints no result.  The line before
@@ -3305,9 +3332,11 @@ class _HubRecorder:
     [counts, bytes, events]) and, in order with them, the resets of its
     channels (``log``: ("drain", quantum) / ("reset", channel)); the
     frames wire ``wire`` handed its demodulator over the first ``keep``
-    quanta (copied on the device, no sync)."""
+    quanta (copied on the device, no sync).  ``activity``: a counter the
+    step is busy for when it moves (default: a transmission queued or
+    playing before the step)."""
 
-    def __init__(self, hub, wire=0, keep=0):
+    def __init__(self, hub, wire=0, keep=0, activity=None):
         import torch
 
         self.step_ms, self.period_ms, self.busy = [], [], []
@@ -3326,8 +3355,13 @@ class _HubRecorder:
             if self._last is not None:
                 self.period_ms.append((t0 - self._last) * 1e3)
             self._last = t0
-            self.busy.append(hub._tx_active())
+            if activity is None:
+                self.busy.append(hub._tx_active())
+            else:
+                a0 = activity()
             step()
+            if activity is not None:
+                self.busy.append(activity() != a0)
             self.step_ms.append((time.perf_counter() - t0) * 1e3)
             for w in [w for w in self._waiters if w[0] <= hub.steps]:
                 self._waiters.remove(w)
@@ -3408,12 +3442,12 @@ def _pct(values, q):
     return v[min(len(v) - 1, int(q * len(v)))] if v else float("nan")
 
 
-def _timer_deltas(before):
+def _timer_deltas(before, names=HUB_TIMERS):
     from webaudio_modem_tpu_torch.utils.trace import metrics
 
     now = metrics.snapshot()["timings"]
     out = {}
-    for name in HUB_TIMERS:
+    for name in names:
         a, b = before.get(name), now.get(name)
         if b is None:
             continue
@@ -3769,6 +3803,437 @@ def phase_farm_hubs(device, card):
                       "dbpsk_hub": psk, "seconds": seconds}
 
 
+# -- phase 20: the soft and blind farm hubs ---------------------------------
+
+SOFT_HUB_BATCH = 4096             # farm_endurance.py --soft / --blind
+SOFT_RING_QUANTA = 22             # ceil(frame_signal_length(133) / 4800) + 2
+BLIND_MAX_PAYLOAD = 160           # BlindSoftFarmHub's default
+SOFT_REPLAY_WINDOWS = 3           # wire 0's first side-b windows, on the CPU
+SOFT_PROFILE_QUANTA = 12          # quanta of a third round under the profiler
+SYNTH_BATCH = 4096
+SYNTH_PAYLOADS = (1, 46, 133)     # a control byte, the tests' 46, a packet
+SYNTH_REPS = 3
+FRAME_STREAM = 8                  # coded frames in (d)'s junk-laden stream
+SOFT_HUB_TIMERS = HUB_TIMERS + ("farm_hub.soft_finalize",)
+
+
+class _SoftSpy:
+    """Spies on a ``SoftFarmHub``'s device work: counts its cohort writes
+    and window decodes (the recorder's activity), and keeps the first
+    ``keep`` windows side b decoded with wire ``wire`` active (its row of
+    the window after the channel function, and its packed row, copied on
+    the device)."""
+
+    def __init__(self, hub, keep=0, wire=0):
+        self.writes = self.decodes = 0
+        self.kept = []              # (window row, payload_len, packed row)
+        self._ctx = None
+        write, dispatch = hub._write_group, hub._dispatch_group
+        decode = hub._decode_window
+
+        def spy_write(*args):
+            self.writes += 1
+            return write(*args)
+
+        def spy_dispatch(tx_side, rx_side, group):
+            self._ctx = (rx_side, group)
+            try:
+                return dispatch(tx_side, rx_side, group)
+            finally:
+                self._ctx = None
+
+        def spy_decode(window, payload_len):
+            packed = decode(window, payload_len)
+            self.decodes += 1
+            rx_side, group = self._ctx
+            if (rx_side == "b" and len(self.kept) < keep
+                    and wire in group.slot_of
+                    and group.active[group.slot_of[wire]]):
+                self.kept.append((window[wire].clone(), payload_len,
+                                  packed[wire].clone()))
+            return packed
+
+        hub._write_group, hub._dispatch_group = spy_write, spy_dispatch
+        hub._decode_window = spy_decode
+
+    def activity(self):
+        return self.writes + self.decodes
+
+
+def _soft_counters(hub, spy):
+    """The hub's cumulative work counters: window decodes and frames for
+    the scheduled hub, programs and receiver counters for the blind one."""
+    if spy is not None:
+        return {"decodes": spy.decodes, "writes": spy.writes,
+                "frames_decoded": hub.frames_decoded,
+                "frames_erased": hub.frames_erased}
+    st = [hub._rx[s].get_status() for s in ("a", "b")]
+    out = {"programs": sum(r["programs"]["header"] + r["programs"]["body"]
+                           for r in st)}
+    for k in ("events_detected", "frames_decoded", "frames_erased",
+              "headers_failed", "dropped_ring"):
+        out[k] = sum(r[k] for r in st)
+    return out
+
+
+def _soft_launches_want(r):
+    """The kernels one round must launch, exactly: per window decode one
+    K1 (csum mode), two K4 and two K3 (SoftFarmHub); per quantum one K1
+    per direction (the detector) and per header or body program one K5,
+    one K4 and one K3 (BlindSoftFarmHub)."""
+    c = r["counters"]
+    if "decodes" in c:
+        d = c["decodes"]
+        return {"fsk_seq": d, "align": 2 * d, "viterbi": 2 * d}
+    p = c["programs"]
+    return {"fsk_seq": 2 * r["steps"], "cumsum0": p, "align": p,
+            "viterbi": p}
+
+
+def _print_soft_round(label, r, B, card):
+    want = _soft_launches_want(r)
+    got = {k: v for k, v in r["launches"].items() if v}
+    if got != want:
+        raise RuntimeError(f"{label} launches {got} != {want}")
+    c = r["counters"]
+    if c["frames_erased"]:
+        print(f"  {label}: {c['frames_erased']} frames erased in round "
+              f"{r['direction']} (AWGN {HUB_NOISE}), resent by XModem")
+    tm = r["timers"]
+    print(f"  {label} B={B} round {r['direction']}: {B} payloads exact, "
+          f"{r['retransmitted']} retransmissions; {r['audio_s']:.1f} s of "
+          f"audio in {r['wall_s']:.3f} s wall, {r['steps']} quanta "
+          f"({r['busy_steps']} busy); per busy quantum (both directions) "
+          f"median {r['period_median_ms']:.2f} ms, p99 "
+          f"{r['period_p99_ms']:.2f} ms against 100 ms (all quanta "
+          f"{r['all_period_median_ms']:.2f} / "
+          f"{r['all_period_p99_ms']:.2f}, max {r['max_period_ms']:.2f}; "
+          f"step() alone {r['step_median_ms']:.2f} / "
+          f"{r['step_p99_ms']:.2f}); counters {c}; timers per call: "
+          + ", ".join(f"{k.split('.')[1]} {v['mean_ms']:.2f} ms x "
+                      f"{v['count']}" for k, v in tm.items())
+          + f"; launches {got} [{card}]", flush=True)
+
+
+def _replay_windows(spy, params):
+    """(e) The kept windows of wire 0 (side b, channel noise included)
+    through the plain versions on the CPU: the packed row (payload bytes
+    and CRC flag) must equal what the kernels gave."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    if len(spy.kept) < SOFT_REPLAY_WINDOWS:
+        raise RuntimeError(f"only {len(spy.kept)} windows of wire 0 kept")
+    t0 = time.perf_counter()
+    n_ok = 0
+    for k, (win, pl, packed) in enumerate(spy.kept):
+        got = soft_fsk._decode_frames_fused(params, win.cpu()[None], pl)[0]
+        want = packed.cpu()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"replay window {k} (payload {pl}): plain "
+                               f"{got.tolist()} != kernels {want.tolist()}")
+        n_ok += int(want[pl])
+    if not n_ok:
+        raise RuntimeError("no replayed window decoded a frame")
+    return {"windows": len(spy.kept), "frames": n_ok,
+            "samples": sum(int(w.shape[0]) for w, _, _ in spy.kept),
+            "seconds": time.perf_counter() - t0}
+
+
+def _soft_wire_run(kind, device, card):
+    """(a) SoftFarmHub or (b) BlindSoftFarmHub at B = 4096 with
+    farm_endurance's settings: warm-up, one round each way, then a third
+    round's first quanta under torch.profiler; for (a) also (e)."""
+    import asyncio
+
+    import torch
+
+    from webaudio_modem_tpu_torch.examples.farm_endurance import \
+        round_payloads
+    from webaudio_modem_tpu_torch.models.config import (DEFAULT_FSK_CONFIG,
+                                                        FSKParams)
+    from webaudio_modem_tpu_torch.runtime.soft_hub import (BlindSoftFarmHub,
+                                                           SoftFarmHub)
+    from webaudio_modem_tpu_torch.sim import make_device_awgn
+    from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
+    from webaudio_modem_tpu_torch.utils.trace import metrics
+
+    B = SOFT_HUB_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(quantum=HUB_QUANTUM, ring_quanta=SOFT_RING_QUANTA,
+              device_channel_fn=make_device_awgn(HUB_NOISE), device=device)
+    if kind == "soft":
+        hub = SoftFarmHub(DEFAULT_FSK_CONFIG, B, **kw)
+        spy = _SoftSpy(hub, keep=SOFT_REPLAY_WINDOWS)
+        rec = _HubRecorder(hub, activity=spy.activity)
+    else:
+        hub = BlindSoftFarmHub(DEFAULT_FSK_CONFIG, B,
+                               max_payload=BLIND_MAX_PAYLOAD, **kw)
+        spy = None
+        rec = _HubRecorder(hub)
+    label = type(hub).__name__
+    ta = [XModemTransport(hub.channel("a", i)) for i in range(B)]
+    tb = [XModemTransport(hub.channel("b", i)) for i in range(B)]
+    out = {"batch": B, "ring_quanta": hub.ring_len // hub.quantum}
+
+    async def drive():
+        pump = asyncio.ensure_future(hub.run())
+        try:
+            for t in (ta[0], tb[0]):
+                t.configure({"timeout_ms": 600000})
+            got = await _hub_round(hub, [ta[0]], [tb[0]],
+                                   [bytes(HUB_PAYLOAD)])
+            if got != [bytes(HUB_PAYLOAD)]:
+                raise RuntimeError(f"{label} warm-up transfer failed")
+            out["warmup_steps"] = hub.steps
+            print(f"  {label} warm-up transfer on wire 0: {hub.steps} "
+                  f"quanta, step median {_pct(rec.step_ms, 0.5):.2f} ms",
+                  flush=True)
+            for t in ta + tb:
+                t.configure({"timeout_ms": HUB_TIMEOUT_MS})
+            rounds = []
+            for rnd, (snd, rcv) in enumerate(((ta, tb), (tb, ta))):
+                payloads = round_payloads(rnd, B, HUB_PAYLOAD)
+                rec.reset_timing()
+                before = metrics.snapshot()["timings"]
+                c0 = _soft_counters(hub, spy)
+                _zero_all_launches()
+                retx0 = sum(t.get_statistics().packets_retransmitted
+                            for t in snd)
+                steps0, t0 = hub.steps, time.perf_counter()
+                got = await _hub_round(hub, snd, rcv, payloads)
+                wall = time.perf_counter() - t0
+                launches = _all_launches()
+                c1 = _soft_counters(hub, spy)
+                steps = hub.steps - steps0
+                bad = sum(g != p for g, p in zip(got, payloads))
+                if bad:
+                    raise RuntimeError(f"{label} round {rnd}: {bad} "
+                                       "payloads wrong")
+                window = rec.period_ms[:SOFT_PROFILE_QUANTA]
+                rounds.append({
+                    **rec.stats(),
+                    "window_ms": sum(window) / max(len(window), 1),
+                    "direction": "a->b" if rnd == 0 else "b->a",
+                    "steps": steps, "audio_s": steps * HUB_QUANTUM / 48000,
+                    "wall_s": wall, "launches": launches,
+                    "counters": {k: c1[k] - c0[k] for k in c1},
+                    "retransmitted": sum(
+                        t.get_statistics().packets_retransmitted
+                        for t in snd) - retx0,
+                    "timers": _timer_deltas(before, SOFT_HUB_TIMERS)})
+                _print_soft_round(label, rounds[-1], B, card)
+            out["rounds"] = rounds
+            out["retransmitted"] = sum(
+                t.get_statistics().packets_retransmitted for t in ta + tb)
+            # a third round a->b, its first quanta under torch.profiler,
+            # in the same event loop (the channels' queues keep the loop
+            # they first waited on); the profiler starts before any
+            # session waits
+            payloads = round_payloads(2, B, HUB_PAYLOAD)
+            prof = _hub_profiler()
+            t0 = time.perf_counter()
+            prof.start()
+            start_s = time.perf_counter() - t0
+            task = asyncio.ensure_future(_hub_round(hub, ta, tb, payloads))
+            t0 = time.perf_counter()
+            await rec.after_steps(hub, SOFT_PROFILE_QUANTA)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / SOFT_PROFILE_QUANTA
+            prof.stop()
+            if await task != payloads:
+                raise RuntimeError(f"{label} profiled round: payloads "
+                                   "wrong")
+            out["profiled_round_retransmitted"] = sum(
+                t.get_statistics().packets_retransmitted
+                for t in ta + tb) - out["retransmitted"]
+            out["profile"] = _hub_profile(prof, SOFT_PROFILE_QUANTA,
+                                          rounds[0]["window_ms"])
+            out["profile"].update(profiled_quantum_wall_ms=wall_ms,
+                                  start_s=start_s)
+        finally:
+            hub.stop()
+            await pump
+
+    asyncio.run(drive())
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    status = hub.get_status()
+    prof = out["profile"]
+    print(f"  {label}: retransmissions {out['retransmitted']} in the "
+          f"warm-up and the two rounds, "
+          f"{out['profiled_round_retransmitted']} in the profiled round; "
+          f"peak device memory {out['peak_mib']:.1f} MiB; status "
+          f"{status}")
+    print(f"  {label} profile of the first {prof['steps']} quanta of a "
+          f"round, per quantum (both directions; "
+          f"{prof['profiled_quantum_wall_ms']:.2f} ms of wall each under "
+          f"the profiler): {prof['kernels_per_step']:.1f} kernels, "
+          f"{prof['copies_per_step']:.1f} copies, "
+          f"{prof['device_ms_per_step']:.4f} ms of device time: busy "
+          f"{100 * prof['busy_share']:.1f} % of the same quanta of round "
+          f"a->b unprofiled ({out['rounds'][0]['window_ms']:.2f} ms each); "
+          f"the profiler's start {prof['start_s']:.2f} s [{card}]")
+    for key, ms, n in prof["top"]:
+        print(f"    {ms:8.4f} ms/quantum  {n:6.2f} per quantum  {key}")
+    if spy is not None:
+        out["replay"] = _replay_windows(spy, FSKParams.from_config(
+            DEFAULT_FSK_CONFIG))
+        r = out["replay"]
+        print(f"  (e) wire 0's first {r['windows']} windows of side b "
+              f"({r['samples']} samples, {r['frames']} frames) replayed "
+              f"through the plain versions on the CPU: the same packed "
+              f"bytes ({r['seconds']:.1f} s)")
+    return out
+
+
+def _synth_check(device, card):
+    """(c) frames_synth_device_fn against encode_frames_batch on the card,
+    exactly, at B = 4096 for 1, 46 and 133-byte payloads, both routes
+    timed (CUDA events around the whole call: the host framing of the
+    second route included); the host-side launches of one TX cohort of
+    the hubs' data packet and of its CRC alone."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.models.config import (DEFAULT_FSK_CONFIG,
+                                                        FSKParams)
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
+    rng = np.random.default_rng(20)
+    out = {}
+    for pl in SYNTH_PAYLOADS:
+        pay = rng.integers(0, 256, (SYNTH_BATCH, pl), dtype=np.uint8)
+        payloads = [bytes(r) for r in pay]
+        fn = soft_fsk.frames_synth_device_fn(params, pl)
+        pay_dev = torch.from_numpy(pay).to(device)
+        dev = fn(pay_dev, device=device)
+        host = soft_fsk.encode_frames_batch(params, payloads, device=device)
+        if not torch.equal(dev, host):
+            raise RuntimeError(f"frames_synth_device_fn pl={pl}: "
+                               f"{int((dev != host).sum())} samples differ "
+                               "from encode_frames_batch")
+        shape = list(dev.shape)
+        del dev, host
+        dev_ms = _cuda_ms(lambda: fn(pay_dev, device=device), SYNTH_REPS)
+        host_ms = _cuda_ms(lambda: soft_fsk.encode_frames_batch(
+            params, payloads, device=device), SYNTH_REPS)
+        out[pl] = {"shape": shape, "device_route_ms": dev_ms,
+                   "host_framed_ms": host_ms}
+        print(f"  (c) frames_synth_device_fn == encode_frames_batch, "
+              f"exactly, {shape} (payload {pl}): device route "
+              f"{dev_ms:.3f} ms, host-framed route {host_ms:.3f} ms a "
+              f"cohort [{card}]", flush=True)
+    pl = HUB_PAYLOAD + 5                    # the hubs' XModem data packet
+    fn = soft_fsk.frames_synth_device_fn(params, pl)
+    pay = torch.from_numpy(rng.integers(0, 256, (SYNTH_BATCH, pl),
+                                        dtype=np.uint8)).to(device)
+    fn(pay, device=device)
+    bits = ((pay.to(torch.int64)[:, :, None]
+             >> torch.arange(7, -1, -1, device=pay.device)) & 1) \
+        .reshape(SYNTH_BATCH, -1)
+    out["cohort_host_ops"] = _host_ops(
+        f"one TX cohort, frames_synth_device_fn payload {pl}",
+        lambda: fn(pay, device=device), 1, top=4)
+    out["crc_host_ops"] = _host_ops(
+        f"its CRC alone, _crc16_bits_device over {pl} bytes",
+        lambda: soft_fsk._crc16_bits_device(bits), 1, top=3)
+    return out
+
+
+def _frame_decoder_check(device, card):
+    """(d) FrameDecoder on the card and on the CPU over one stream of
+    coded frames with junk between them: the right payloads, the same
+    counters, K3 launched once per decode (each resync slide one launch
+    and one copy back), the wall of the junk-laden process()."""
+    import numpy as np
+
+    from webaudio_modem_tpu_torch.ops.kernels import viterbi
+    from webaudio_modem_tpu_torch.transports.fec_frame import (FrameDecoder,
+                                                               FrameEncoder)
+
+    rng = np.random.default_rng(21)
+    payloads, stream = [], b""
+    for _ in range(FRAME_STREAM):
+        junk = bytes(rng.integers(0, 256, int(rng.integers(0, 40)),
+                                  dtype=np.uint8))
+        p = bytes(rng.integers(0, 256, int(rng.integers(1, 64)),
+                               dtype=np.uint8))
+        payloads.append(p)
+        stream += junk + FrameEncoder.encode_frame(p)
+    stream += bytes(FrameEncoder.coded_frame_length(258))
+    res = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        dec = FrameDecoder(max_payload=256, device=dev)
+        _zero_all_launches()
+        t0 = time.perf_counter()
+        got = dec.process(stream)
+        calls = 1
+        while dec.scan_pending:
+            got += dec.process(b"")
+            calls += 1
+        wall = time.perf_counter() - t0
+        res[name] = {"payloads": got, "wall_s": wall, "calls": calls,
+                     "k3_launches": viterbi.launches,
+                     "headers_resynced": dec.headers_resynced,
+                     "bodies_dropped": dec.bodies_dropped,
+                     "frames_decoded": dec.frames_decoded,
+                     "waiting_body": dec._body_coded_len is not None}
+    card_r, cpu_r = res["card"], res["cpu"]
+    if card_r["payloads"] != payloads or cpu_r["payloads"] != payloads:
+        raise RuntimeError("FrameDecoder: wrong payloads")
+    counters = ("headers_resynced", "bodies_dropped", "frames_decoded")
+    if any(card_r[k] != cpu_r[k] for k in counters):
+        raise RuntimeError(f"FrameDecoder: card {card_r} != cpu {cpu_r}")
+    decodes = (card_r["headers_resynced"] + 2 * card_r["frames_decoded"]
+               + card_r["bodies_dropped"] + int(card_r["waiting_body"]))
+    if card_r["k3_launches"] != decodes:
+        raise RuntimeError(f"FrameDecoder: {card_r['k3_launches']} K3 "
+                           f"launches for {decodes} decodes")
+    out = {"stream_bytes": len(stream), "frames": len(payloads),
+           **{f"{name}_{k}": r[k] for name, r in res.items()
+              for k in ("wall_s", "k3_launches", "calls")},
+           **{k: card_r[k] for k in counters}}
+    print(f"  (d) FrameDecoder over {len(stream)} bytes ({len(payloads)} "
+          f"frames, junk between): every payload exact on the card and on "
+          f"the CPU, {card_r['headers_resynced']} resync slides; card "
+          f"{card_r['wall_s'] * 1e3:.1f} ms wall for "
+          f"{card_r['k3_launches']} K3 launches "
+          f"({card_r['wall_s'] * 1e3 / card_r['k3_launches']:.3f} ms a "
+          f"decode), CPU {cpu_r['wall_s'] * 1e3:.1f} ms [{card}]")
+    return out
+
+
+def phase_soft_hubs(device, card):
+    """(c) on-device frame synthesis against the host-framed route; (a)
+    SoftFarmHub and (b) BlindSoftFarmHub at B = 4096, a round each way,
+    measured, with (e) a replay of (a)'s windows on the CPU; (d) the FEC
+    frame layer's decoder on the card.  Any ERROR record of the port's
+    loggers fails the phase.  Returns the launches by path and the
+    results."""
+    t_phase = time.perf_counter()
+    synth = _synth_check(device, card)
+    trap = _HubTrap()
+    try:
+        soft = _soft_wire_run("soft", device, card)
+        blind = _soft_wire_run("blind", device, card)
+    finally:
+        trap.close()
+    frames = _frame_decoder_check(device, card)
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 20: {seconds:.1f} s [{card}]")
+    launches = {"soft_hub": {}, "blind_hub": {},
+                "fec_frame": {"viterbi": frames["card_k3_launches"]}}
+    for path, run in (("soft_hub", soft), ("blind_hub", blind)):
+        for r in run["rounds"]:
+            for k, v in r["launches"].items():
+                launches[path][k] = launches[path].get(k, 0) + v
+    return launches, {"soft_hub": soft, "blind_hub": blind,
+                      "frames_synth": synth, "frame_decoder": frames,
+                      "seconds": seconds}
+
+
 def _host_ops(label, run, calls, top=8):
     """The host side of ``run()`` (``calls`` calls) under torch.profiler,
     CPU only: kernel launches per call and the operators with the most
@@ -3874,6 +4339,9 @@ def main() -> int:
     xmodem_launches, xmodem_out = phase_xmodem_audio(device, card)
     print("phase 19: the farm hubs, thousands of XModem sessions")
     hub_launches, hub_out = phase_farm_hubs(device, card)
+    print("phase 20: the soft and blind farm hubs")
+    soft_hub_launches, soft_hub_out = phase_soft_hubs(device, card)
+    hub_launches.update(soft_hub_launches)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib",
@@ -3929,6 +4397,7 @@ def main() -> int:
                                    "graph": k8["bench_turns_graph_ms"]}}),
         row("viterbi", "viterbi.cu", "viterbi.py:82", soft["viterbi_header"],
             {**others("viterbi_body", "viterbi_payload-100"),
+             "soft_hubs_main_path": soft_hub_out,
              "graph_ms": {n: soft[f"viterbi_{n}"]["graph_ms"]
                           for n in ("header", "body", "payload-100")}}),
         row("align", "align.cu", "align.py:75", soft["align_header"],

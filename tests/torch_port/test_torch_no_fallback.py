@@ -32,9 +32,11 @@ from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
                                                   fsk_framing, fsk_seq,
                                                   psk_seq, viterbi)
 from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
-from webaudio_modem_tpu_torch.runtime import (DeviceFarmHub, FSKProcessor,
-                                              FarmLoopbackHub)
+from webaudio_modem_tpu_torch.runtime import (BlindSoftFarmHub,
+                                              DeviceFarmHub, FSKProcessor,
+                                              FarmLoopbackHub, SoftFarmHub)
 from webaudio_modem_tpu_torch.sim import ber, impairments
+from webaudio_modem_tpu_torch.transports.fec_frame import FrameDecoder
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -117,7 +119,12 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
     "webaudio_modem_tpu_torch.examples",
     "webaudio_modem_tpu_torch.examples.farm_transport_demo",
     "webaudio_modem_tpu_torch.examples.farm_endurance",
-    "webaudio_modem_tpu_torch.examples.latency_probe"])
+    "webaudio_modem_tpu_torch.examples.latency_probe",
+    "webaudio_modem_tpu_torch.runtime.soft_hub",
+    "webaudio_modem_tpu_torch.transports.fec_frame",
+    "webaudio_modem_tpu_torch.examples.farm_host_cost",
+    "webaudio_modem_tpu_torch.examples.blind_host_cost",
+    "webaudio_modem_tpu_torch.examples.demo"])
 def test_new_modules_are_walked_behind_the_blocker(module):
     code = _BLOCKED_IMPORTS.replace(
         'print(len(names), "modules clean")',
@@ -143,6 +150,8 @@ def test_new_modules_are_walked_behind_the_blocker(module):
     fsk_mod.modulate, fsk_mod.modulate_batch, psk.modulate,
     psk.modulate_batch, fsk_demod.init_state, psk.init_state,
     FarmLoopbackHub.__init__, DeviceFarmHub.__init__,
+    SoftFarmHub.__init__, BlindSoftFarmHub.__init__, FrameDecoder.__init__,
+    soft_fsk.frames_synth_device_fn(FSKParams.from_config(FSKConfig()), 4),
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -184,6 +193,11 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         lambda: psk.init_state(params, batch=1),
         lambda: FarmLoopbackHub(FSKConfig(), 2),
         lambda: DeviceFarmHub(FSKConfig(), 2),
+        lambda: SoftFarmHub(FSKConfig(), 2),
+        lambda: BlindSoftFarmHub(FSKConfig(), 2),
+        lambda: FrameDecoder(),
+        lambda: soft_fsk.frames_synth_device_fn(params, 4)(
+            np.zeros((1, 4), np.uint8)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):

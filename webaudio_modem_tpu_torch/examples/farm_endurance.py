@@ -1,19 +1,31 @@
 """Farm-transport endurance on the card: N concurrent XModem ARQ sessions
-over ONE device-resident hub (the port's ``DeviceFarmHub``).
+over ONE device-resident hub.
 
 Every session runs the complete stop-and-wait protocol (initial NAK,
 data packets, ACKs, EOT) over the batched farm wire, a tensor ring on
 the card: per audio quantum the host launches one pump per direction
-(K1 + K2) and receives ONLY the decoded byte aggregates, drained through
-the batched C++ deframer.
+(K1 + K2, ``DeviceFarmHub``) and receives ONLY the decoded byte
+aggregates, drained through the batched C++ deframer.
 
     python -m webaudio_modem_tpu_torch.examples.farm_endurance \\
         --batch 4096 --rounds 3
 
+``--soft`` runs the same topology over the soft-decision FEC wire
+(``runtime/soft_hub.SoftFarmHub``: coded frames synthesized on the card,
+one fused window decode per transmission):
+
+    python -m webaudio_modem_tpu_torch.examples.farm_endurance --soft \\
+        --batch 4096 --rounds 3
+
+``--blind`` (implies the soft wire) swaps in the fully blind receive
+path (``runtime/soft_hub.BlindSoftFarmHub``): frames are acquired by the
+streaming sync scan and lengths read from decoded headers.
+``--rs-parity`` / ``--body`` (the RS outer code, LDPC / turbo bodies)
+are slice E of the port (ROADMAP queue 1, item 14) and raise.
+
 Prints per-round results, per-quantum host time (from the metrics
 timers), and a final ALL OK / MISMATCH verdict with RSS.  Exits non-zero
-on any payload mismatch.  ``--soft`` and ``--blind`` (the soft-FEC and
-blind hubs) are not ported yet (ROADMAP queue 1, item 12).
+on any payload mismatch.
 """
 
 from __future__ import annotations
@@ -24,12 +36,44 @@ import resource
 import sys
 import time
 
-SOFT_NOT_PORTED = ("--soft / --blind: SoftFarmHub and BlindSoftFarmHub are "
-                   "not ported yet (ROADMAP queue 1, item 12)")
+BODY_NOT_PORTED = ("--rs-parity / --body: the RS outer code and the LDPC / "
+                   "turbo body codes are ported in slice E (ROADMAP queue "
+                   "1, item 14)")
 
 
 def _rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+def soft_ring_quanta(config, quantum: int, rs_parity: int = 0,
+                     body_code=None) -> int:
+    """Quanta a soft wire's ring needs: the longest frame (a 133-byte
+    XModem packet) plus slack, as the reference sizes it."""
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    params = FSKParams.from_config(config)
+    return -(-soft_fsk.frame_signal_length(params, 133, rs_parity,
+                                           body_code) // quantum) + 2
+
+
+def make_soft_hub(config, batch: int, quantum: int, ring_quanta: int,
+                  chan, blind: bool, device, rs_parity: int = 0,
+                  body_code=None):
+    """The soft-FEC hub of ``--soft`` (``SoftFarmHub``) or ``--blind``
+    (``BlindSoftFarmHub``, payloads up to 160 bytes), its ring at least
+    ``soft_ring_quanta`` quanta.  ``rs_parity`` / ``body_code`` are slice
+    E of the port and raise (ROADMAP queue 1, item 14)."""
+    from webaudio_modem_tpu_torch.runtime.soft_hub import (BlindSoftFarmHub,
+                                                           SoftFarmHub)
+
+    cls = BlindSoftFarmHub if blind else SoftFarmHub
+    kw = {"max_payload": 160} if blind else {}
+    ring = max(ring_quanta, soft_ring_quanta(config, quantum, rs_parity,
+                                             body_code))
+    return cls(config, batch, quantum=quantum, ring_quanta=ring,
+               device_channel_fn=chan, rs_parity=rs_parity,
+               body_code=body_code, device=device, **kw)
 
 
 def round_payloads(rnd: int, batch: int, payload_size: int):
@@ -43,20 +87,30 @@ def round_payloads(rnd: int, batch: int, payload_size: int):
 async def run(batch: int, rounds: int, payload_size: int,
               noise_power: float, quantum: int, ring_quanta: int,
               timeout_ms: float, soft: bool = False, blind: bool = False,
-              stages: bool = False, device: str = "cuda") -> int:
-    if soft or blind:
-        raise NotImplementedError(SOFT_NOT_PORTED)
+              stages: bool = False, device: str = "cuda",
+              rs_parity: int = 0, body: str = "") -> int:
+    if rs_parity or body:
+        raise NotImplementedError(BODY_NOT_PORTED)
     from webaudio_modem_tpu_torch.models.config import DEFAULT_FSK_CONFIG
-    from webaudio_modem_tpu_torch.runtime.device_hub import DeviceFarmHub
     from webaudio_modem_tpu_torch.sim import make_device_awgn
     from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
     from webaudio_modem_tpu_torch.utils.trace import metrics
 
     chan = make_device_awgn(noise_power) if noise_power else None
-    hub = DeviceFarmHub(DEFAULT_FSK_CONFIG, batch, quantum=quantum,
-                        ring_quanta=ring_quanta, device_channel_fn=chan,
-                        device=device)
-    print(f"{batch} concurrent XModem sessions over the hard-UART wire "
+    soft = soft or blind
+    if soft:
+        hub = make_soft_hub(DEFAULT_FSK_CONFIG, batch, quantum, ring_quanta,
+                            chan, blind, device)
+        kind = f"{'BLIND ' if blind else ''}soft-FEC (conv)"
+    else:
+        from webaudio_modem_tpu_torch.runtime.device_hub import \
+            DeviceFarmHub
+
+        hub = DeviceFarmHub(DEFAULT_FSK_CONFIG, batch, quantum=quantum,
+                            ring_quanta=ring_quanta, device_channel_fn=chan,
+                            device=device)
+        kind = "hard-UART"
+    print(f"{batch} concurrent XModem sessions over the {kind} wire "
           f"on {hub.device}, {payload_size} B payload, "
           f"{DEFAULT_FSK_CONFIG.baud_rate} baud, noise={noise_power} "
           f"(native deframer: {hub._deframers['a'].is_native}, "
@@ -147,6 +201,9 @@ async def run(batch: int, rounds: int, payload_size: int,
           f"{t_ms('farm_hub.host_drain')}")
     print(f"device fetch wait per drain:         "
           f"{t_ms('farm_hub.fetch_wait')}")
+    if snap.get("farm_hub.soft_finalize"):
+        print(f"soft window finalize per decode:     "
+              f"{t_ms('farm_hub.soft_finalize')}")
     print(f"launch+drain (chunk) per direction-quantum: "
           f"{t_ms('farm_hub.chunk')}")
     print(f"event-loop yield pump per quantum:   "
@@ -157,8 +214,8 @@ async def run(batch: int, rounds: int, payload_size: int,
         return agg["mean_ms"] * agg["count"] / 1e3 if agg else 0.0
 
     budget = {n: total_s(f"farm_hub.{n}") for n in
-              ("host_tx", "host_drain", "fetch_wait", "chunk",
-               "yield_pump")}
+              ("host_tx", "host_drain", "soft_finalize", "fetch_wait",
+               "chunk", "yield_pump")}
     print("host budget totals (s): " + ", ".join(
         f"{k}={v:.2f}" for k, v in budget.items())
         + f" | wall {wall:.2f}")
@@ -176,9 +233,16 @@ def main(argv=None) -> int:
     p.add_argument("--ring-quanta", type=int, default=16)
     p.add_argument("--timeout-ms", type=float, default=30000)
     p.add_argument("--soft", action="store_true",
-                   help="the soft-FEC wire (not ported yet: raises)")
+                   help="run over the soft-FEC wire "
+                        "(runtime/soft_hub.SoftFarmHub)")
     p.add_argument("--blind", action="store_true",
-                   help="the blind soft wire (not ported yet: raises)")
+                   help="soft wire with the fully blind receive path "
+                        "(runtime/soft_hub.BlindSoftFarmHub)")
+    p.add_argument("--rs-parity", type=int, default=0,
+                   help="soft wire: RS parity symbols (slice E: raises)")
+    p.add_argument("--body", default="",
+                   help="soft wire body code: ldpc | turbo (slice E: "
+                        "raises)")
     p.add_argument("--stages", action="store_true",
                    help="print per-round stage deltas (ms/quantum)")
     p.add_argument("--device", default="cuda")
@@ -187,7 +251,8 @@ def main(argv=None) -> int:
                            args.noise, args.quantum, args.ring_quanta,
                            args.timeout_ms, soft=args.soft,
                            blind=args.blind, stages=args.stages,
-                           device=args.device))
+                           device=args.device, rs_parity=args.rs_parity,
+                           body=args.body))
 
 
 if __name__ == "__main__":

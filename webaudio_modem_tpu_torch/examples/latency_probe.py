@@ -6,10 +6,9 @@ script puts a number on the analog in the port, on both topologies:
 
   * the interactive ``FSKProcessor`` path at the reference's own
     128-sample quantum (``--interactive``), and
-  * the hard farm hub (``--farm hard``, ``DeviceFarmHub``) at its
-    default 4800-sample (100 ms) quantum or any ``--quantum``.  The soft
-    and blind hubs are not ported yet (ROADMAP queue 1, item 12):
-    ``--farm soft|blind`` raises.
+  * the farm hubs, hard / soft / blind (``--farm hard|soft|blind``:
+    ``DeviceFarmHub``, ``SoftFarmHub``, ``BlindSoftFarmHub``), at their
+    default 4800-sample (100 ms) quantum or any ``--quantum``.
 
 One XModem transfer of a single fragment is FIVE signal hops (initial
 NAK -> DATA -> ACK -> EOT -> final ACK), so the floor of the audio-time
@@ -22,6 +21,10 @@ quantum is reported against the realtime budget (quantum / fs).
     python -m webaudio_modem_tpu_torch.examples.latency_probe --interactive
     python -m webaudio_modem_tpu_torch.examples.latency_probe --farm hard \\
         --batch 16
+    python -m webaudio_modem_tpu_torch.examples.latency_probe --farm soft \\
+        --batch 1024
+    python -m webaudio_modem_tpu_torch.examples.latency_probe --farm blind \\
+        --batch 256 --quantum 480
 """
 
 from __future__ import annotations
@@ -33,14 +36,11 @@ import time
 
 import numpy as np
 
-SOFT_NOT_PORTED = ("--farm soft / blind: SoftFarmHub and BlindSoftFarmHub "
-                   "are not ported yet (ROADMAP queue 1, item 12)")
-
-
 def _tail_s(config) -> float:
-    """Per-signal trailing silence: one byte-time.  A hop's byte decodes
-    at its stop bit, BEFORE this tail plays, so the decode floor
-    subtracts one tail per hop."""
+    """Per-signal trailing silence: one byte-time on both wires
+    (``fsk_mod.signal_length`` / ``soft_fsk.frame_signal_length``).  A
+    hop's byte decodes at its stop bit, BEFORE this tail plays, so the
+    decode floor subtracts one tail per hop."""
     from webaudio_modem_tpu_torch.models.config import FSKParams
 
     p = FSKParams.from_config(config)
@@ -62,6 +62,21 @@ def signal_floor_uart(config, payload_size: int) -> tuple:
         XModemPacket.serialize_control(ControlType.NAK)))
     data = fsk_mod.signal_length(params, len(XModemPacket.serialize(
         XModemPacket.create_data(1, bytes(payload_size)))))
+    full = (4 * ctrl + data) / config.sample_rate
+    return full, full - 5 * _tail_s(config)
+
+
+def signal_floor_soft(config, payload_size: int, rs_parity: int = 0,
+                      body_code=None) -> tuple:
+    """The same floors over the soft-FEC wire (coded frame lengths; the
+    reference counts the data frame as payload + 6 bytes)."""
+    from webaudio_modem_tpu_torch.models.config import FSKParams
+    from webaudio_modem_tpu_torch.ops import soft_fsk
+
+    params = FSKParams.from_config(config)
+    ctrl = soft_fsk.frame_signal_length(params, 1, rs_parity, body_code)
+    data = soft_fsk.frame_signal_length(params, payload_size + 6,
+                                        rs_parity, body_code)
     full = (4 * ctrl + data) / config.sample_rate
     return full, full - 5 * _tail_s(config)
 
@@ -140,22 +155,34 @@ async def interactive_probe(payload_size: int, quantum: int, reps: int,
 
 async def farm_probe(kind: str, batch: int, payload_size: int,
                      quantum: int, reps: int, noise: float,
-                     device: str = "cuda") -> dict:
+                     device: str = "cuda", rs_parity: int = 0,
+                     body_code=None) -> dict:
     """Farm topology: B concurrent transfers over one device hub;
-    latency = round start -> LAST delivery (cohort completion)."""
-    if kind != "hard":
-        raise NotImplementedError(SOFT_NOT_PORTED)
+    latency = round start -> LAST delivery (cohort completion).
+    ``rs_parity`` / ``body_code`` select the soft wires' body coding
+    (slice E of the port, ROADMAP queue 1, item 14: they raise)."""
     from webaudio_modem_tpu_torch.models.config import DEFAULT_FSK_CONFIG
-    from webaudio_modem_tpu_torch.runtime.device_hub import DeviceFarmHub
     from webaudio_modem_tpu_torch.sim import make_device_awgn
     from webaudio_modem_tpu_torch.transports.xmodem import XModemTransport
 
     config = DEFAULT_FSK_CONFIG
     chan = make_device_awgn(noise) if noise else None
-    hub = DeviceFarmHub(config, batch, quantum=quantum,
-                        ring_quanta=max(16, 80000 // quantum + 2),
-                        device_channel_fn=chan, device=device)
-    floor, dfloor = signal_floor_uart(config, payload_size)
+    if kind == "hard":
+        from webaudio_modem_tpu_torch.runtime.device_hub import \
+            DeviceFarmHub
+
+        hub = DeviceFarmHub(config, batch, quantum=quantum,
+                            ring_quanta=max(16, 80000 // quantum + 2),
+                            device_channel_fn=chan, device=device)
+        floor, dfloor = signal_floor_uart(config, payload_size)
+    else:
+        from webaudio_modem_tpu_torch.examples.farm_endurance import \
+            make_soft_hub
+
+        hub = make_soft_hub(config, batch, quantum, 16, chan,
+                            kind == "blind", device, rs_parity, body_code)
+        floor, dfloor = signal_floor_soft(config, payload_size, rs_parity,
+                                          body_code)
 
     senders = [XModemTransport(hub.channel("a", i)) for i in range(batch)]
     receivers = [XModemTransport(hub.channel("b", i))
@@ -239,8 +266,6 @@ async def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not args.interactive and not args.farm:
         args.interactive = True
-    if args.farm and args.farm != "hard":
-        raise NotImplementedError(SOFT_NOT_PORTED)
     if args.interactive:
         q = args.quantum or 128
         report(await interactive_probe(args.payload, q, args.reps,

@@ -7,7 +7,9 @@ path of ``bench.py --family soft``) and the frame builders:
   TX  ``encode_frames_batch``: payloads -> [LEN+CRC | payload+CRC]
       frames, convolutionally coded (rate 1/2, K=7, ``ops/fec.py``),
       after the preamble+SFD pattern -> phase-continuous FSK, one
-      synthesis on the device.
+      synthesis on the device; ``frames_synth_device_fn``: the same
+      signals, sample for sample, framed on the device from a [B, pl]
+      payload plane (the soft farm hubs' cohort synthesis).
   RX  ``_decode_frames_fused``, one pass over the batch on the device:
       1. K1 (``ops/kernels/fsk_seq.py``) with the bit and amp streams
          dropped and the softs slot holding their inclusive f32 running
@@ -149,6 +151,100 @@ def encode_frames_batch(params: FSKParams, payloads, rs_parity: int = 0,
         body_coded], axis=1)
     return fsk_mod.synth_bits_batch(params, bits, params.samples_per_bit * 2,
                                     device)
+
+
+@functools.lru_cache(maxsize=None)
+def frames_synth_device_fn(params: FSKParams, payload_len: int):
+    """``synth(pay, device="cuda")``: a [B, payload_len] uint8 payload
+    plane -> f32 [B, T] frame signals, the framing and the synthesis both
+    on ``device`` (the convolutional body; no RS / block code).
+
+    ``encode_frames_batch`` frames on the host and uploads the phase
+    prefix and the bits of every sample row; this uploads only the
+    payload bytes and runs on the device:
+
+      * CRC16 per row: the batched table recurrence
+        ``_crc16_bits_device`` over the payload bits;
+      * the rate-1/2 K=7 conv encode: the shifted-column XOR form of
+        ``fec.conv_encode_bits_batch``;
+      * the exact integer phase prefix: within the coded body the per-bit
+        advance takes two values, so the exclusive prefix is
+        ``head_total + space_step * i + (mark - space) * ones_before_i``,
+        the ones counted by an exclusive int64 ``torch.cumsum`` (the
+        reference multiplies by a triangular f32 matrix instead, a
+        workaround for XLA:TPU's cumsum compile); the largest sum,
+        ~5.7e7 for a 133-byte payload, is far inside int64;
+      * the sine expansion and lead / trail padding of
+        ``fsk_mod._synth_int``, the function ``encode_frames_batch``
+        reaches through ``fsk_mod.synth_bits_batch``.
+
+    The phase prefixes are the same integers as ``encode_frames_batch``'s
+    and the expansion the same function, so the two give the same samples
+    bit for bit on one device.  Returns None when the configuration has
+    non-integer frequencies (callers then use ``encode_frames_batch``)."""
+    if not fsk_mod._int_config(params):
+        return None
+    K = fec.K
+    pattern = np.asarray(params.pattern_bits, np.int64)
+    hdr = fec.conv_encode_bits(fec.bytes_to_bits(
+        fec.build_frame_header(payload_len))).astype(np.int64)
+    head_bits = np.concatenate([pattern, hdr])            # [P + H]
+    spb = params.samples_per_bit
+    fs = int(params.sample_rate)
+    mark_step = int(params.mark_freq) * spb % fs
+    space_step = int(params.space_freq) * spb % fs
+    # exclusive integer phase prefix over the shared head bits (host,
+    # once per (params, payload_len))
+    head_steps = np.where(head_bits == 1, mark_step, space_step)
+    head_acc = (np.cumsum(head_steps) - head_steps) % fs
+    head_total = int(head_steps.sum())
+    nb = 2 * (8 * (payload_len + 2) + K - 1)   # coded body bits
+    pad = (spb * 2, params.bits_per_byte * spb)
+    consts = {}                                # device -> head tensors
+
+    def synth(pay, device="cuda") -> torch.Tensor:
+        device = resolve_device(device)
+        if not isinstance(pay, torch.Tensor):
+            pay = torch.from_numpy(np.array(pay, np.uint8))
+        if pay.dim() != 2 or pay.shape[1] != payload_len:
+            raise ValueError(f"synth expects [B, {payload_len}] payload "
+                             f"bytes, got {tuple(pay.shape)}")
+        pay = pay.to(device=device, dtype=torch.int64)
+        key = str(pay.device)
+        if key not in consts:
+            consts[key] = (torch.from_numpy(head_bits).to(pay.device),
+                           torch.from_numpy(head_acc).to(pay.device))
+        h_bits, h_acc = consts[key]
+        B = pay.shape[0]
+        shifts = torch.arange(7, -1, -1, device=pay.device)
+        pbits = ((pay[:, :, None] >> shifts) & 1).reshape(B, -1)
+        crc = _crc16_bits_device(pbits).to(torch.int64)       # [B]
+        crc_bits = (crc[:, None] >> torch.arange(15, -1, -1,
+                                                 device=pay.device)) & 1
+        body_bits = torch.cat([pbits, crc_bits], dim=1)       # [B, n]
+        n = body_bits.shape[1]
+        padded = torch.nn.functional.pad(body_bits, (K - 1, K - 1))
+        streams = []
+        for g in (fec.G0, fec.G1):
+            acc = torch.zeros((B, n + K - 1), dtype=torch.int64,
+                              device=pay.device)
+            # G bit (K-1-j) taps window column j (oldest bit at the MSB)
+            for j in range(K):
+                if (g >> (K - 1 - j)) & 1:
+                    acc = acc ^ padded[:, j:j + n + K - 1]
+            streams.append(acc)
+        coded = torch.stack(streams, dim=2).reshape(B, nb)
+        ones_before = torch.cumsum(coded, dim=1) - coded
+        body_acc = (head_total
+                    + space_step * torch.arange(nb, device=pay.device)
+                    + (mark_step - space_step) * ones_before) % fs
+        acc = torch.cat([h_acc.expand(B, -1), body_acc], dim=1)
+        bits = torch.cat([h_bits.expand(B, -1), coded], dim=1)
+        return fsk_mod._synth_int(acc.to(torch.int32), bits, fs,
+                                  float(params.mark_freq),
+                                  float(params.space_freq), spb, pad)
+
+    return synth
 
 
 def frame_signal_length(params: FSKParams, payload_len: int,
@@ -304,12 +400,14 @@ def _sync_peak(params: FSKParams, rsum: torch.Tensor):
 
 
 def _batch_header_stage(params: FSKParams, csum: torch.Tensor,
-                        rsum: torch.Tensor, body_bits_n: int):
+                        rsum: torch.Tensor, body_bits_n: int,
+                        top_k: int = HEADER_TOP_K):
     """Sync peak + header-candidate selection + ONE batched Viterbi.
     ``csum`` is K1's inclusive cumsum of the softs [n_ds, B], ``rsum``
     its R stream.  Returns (starts, headers, valid)."""
     t_peak, peak_ok = _sync_peak(params, rsum)
-    return _candidate_headers(params, csum, t_peak, peak_ok, body_bits_n)
+    return _candidate_headers(params, csum, t_peak, peak_ok, body_bits_n,
+                              top_k)
 
 
 def _body_llrs(params: FSKParams, csum: torch.Tensor,
@@ -414,10 +512,12 @@ def _crc16_bits_device(bits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _decode_frames_fused(params: FSKParams, samples: torch.Tensor,
-                         payload_len: int) -> torch.Tensor:
+                         payload_len: int, top_k=None) -> torch.Tensor:
     """The whole farm decode on the samples' device: f32 [B, T] ->
     packed [B, payload_len + 1] uint8 (payload bytes + ok flag column).
-    K1 once, K4 twice, K3 twice; no host sync."""
+    K1 once, K4 twice, K3 twice; no host sync.  ``top_k``: header
+    candidates kept per channel (None: ``HEADER_TOP_K``; 0: the whole
+    grid)."""
     B = samples.shape[0]
     ds = params.ds_samples_per_bit
     state = fsk_demod.init_state(params, B, samples.device)
@@ -428,7 +528,8 @@ def _decode_frames_fused(params: FSKParams, samples: torch.Tensor,
         samples.t().contiguous(), emit_bits=False, emit_amps=False,
         emit_csum=True)
     starts, headers, valid = _batch_header_stage(
-        params, csum, rsum, _body_coded_bits(payload_len))
+        params, csum, rsum, _body_coded_bits(payload_len),
+        HEADER_TOP_K if top_k is None else top_k)
     found, _, st = _select_candidate(headers, starts, valid,
                                      payload_len=payload_len)
     b_starts = torch.where(found, st + HEADER_CODED_BITS * ds,

@@ -1,10 +1,10 @@
 """The port's streaming runtime: the chunked modulator, the realtime
 processor, the in-memory data channels, the simulated audio graph and
-the hard farm hubs, ``FarmLoopbackHub`` (host playout) and
-``DeviceFarmHub`` (the wire on the card), whose ``FarmDataChannel``s
-carry thousands of ARQ sessions (``webaudio_modem_tpu/runtime``).  The
-soft hubs, ``SoftFarmHub`` and ``BlindSoftFarmHub``, are not ported yet
-(ROADMAP queue 1, item 12)."""
+the farm hubs, whose ``FarmDataChannel``s carry thousands of ARQ
+sessions: ``FarmLoopbackHub`` (host playout), ``DeviceFarmHub`` (the
+hard wire on the card), ``SoftFarmHub`` (the soft-FEC wire, scheduled
+window decodes) and ``BlindSoftFarmHub`` (the soft-FEC wire, blind
+acquisition) (``webaudio_modem_tpu/runtime``)."""
 
 from webaudio_modem_tpu_torch.runtime.chunked_modulator import (  # noqa: F401
     ChunkedModulator,
@@ -27,4 +27,8 @@ from webaudio_modem_tpu_torch.runtime.farm_channel import (  # noqa: F401
 )
 from webaudio_modem_tpu_torch.runtime.device_hub import (  # noqa: F401
     DeviceFarmHub,
+)
+from webaudio_modem_tpu_torch.runtime.soft_hub import (  # noqa: F401
+    BlindSoftFarmHub,
+    SoftFarmHub,
 )
