@@ -1136,6 +1136,15 @@ def phase_soft_main_path(device, rng):
     return launches
 
 
+def _is_span(ev):
+    """A ``record_function`` span (the port's ``metrics`` timers open one
+    while a profiler records): on the host its self time is the span's
+    own Python, on the device its extent over what it launched.  Neither
+    is an operator, kernel or copy, and torch's own tables leave them
+    out."""
+    return bool(getattr(ev, "is_user_annotation", False))
+
+
 def _profile(label, run, calls, wall_ms, card):
     """torch.profiler over ``run()``, which makes ``calls`` calls: device
     time per call by kernel, and the device's busy share of ``wall_ms``,
@@ -1160,10 +1169,11 @@ def _profile(label, run, calls, wall_ms, card):
         return 0.0
 
     # device-side events only (kernels, copies, fills): an operator's own
-    # row would count its kernels' time a second time
+    # row would count its kernels' time a second time, and so would a
+    # span's extent on the device
     rows = sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and dev_us(e) > 0), reverse=True)
+                   and not _is_span(e) and dev_us(e) > 0), reverse=True)
     if not rows:
         print("  profile: the profiler recorded no device time")
         return rows
@@ -3195,7 +3205,8 @@ def _xmodem_step_profile(device, trap, card, step_wall_ms):
         out, _ = _xmodem_transfer(XMODEM_TRANSFERS[0], device, trap)
     steps = out["steps"]
     dev = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == DeviceType.CUDA]
+           if getattr(e, "device_type", None) == DeviceType.CUDA
+           and not _is_span(e)]
 
     def us(e):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -3470,7 +3481,8 @@ def _hub_profile(prof, steps, step_wall_ms):
     from torch.autograd import DeviceType
 
     dev = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == DeviceType.CUDA]
+           if getattr(e, "device_type", None) == DeviceType.CUDA
+           and not _is_span(e)]
 
     def us(e):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -4243,7 +4255,8 @@ def _host_ops(label, run, calls, top=8):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run()
     rows = sorted(((e.self_cpu_time_total, e.key, e.count)
-                   for e in prof.key_averages()), reverse=True)
+                   for e in prof.key_averages() if not _is_span(e)),
+                  reverse=True)
     launches = sum(c for _, k, c in rows if k == "cudaLaunchKernel")
     total_ms = sum(r[0] for r in rows) / 1e3 / calls
     print(f"  host ops {label}: {launches / calls:.0f} kernel launches and "

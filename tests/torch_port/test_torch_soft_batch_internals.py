@@ -240,6 +240,14 @@ def stage_planes():
     return params, full, csum_mode, rng
 
 
+def _header_stage(params, csum, rsum, body_bits_n):
+    """The fused decode's header stage: the sync peak, then the header
+    candidates and their one batched Viterbi; (starts, headers, valid)."""
+    t_peak, peak_ok = soft_fsk._sync_peak(params, rsum)
+    return soft_fsk._candidate_headers(params, csum, t_peak, peak_ok,
+                                       body_bits_n, soft_fsk.HEADER_TOP_K)
+
+
 class TestHeaderStageBitsOptional:
     def test_csum_mode_matches_the_full_stream_run(self, stage_planes):
         # the fused path drops the bit stream (R carries sync) and reads
@@ -250,10 +258,10 @@ class TestHeaderStageBitsOptional:
         _, _, bits, _, softs, rsum = full
         assert csum_mode[2] is None and csum_mode[3] is None
         torch.testing.assert_close(csum_mode[5], rsum, rtol=0, atol=0)
-        with_bits = soft_fsk._batch_header_stage(
-            params, soft_fsk._csum0(softs)[1:], rsum, body_bits_n)
-        without = soft_fsk._batch_header_stage(
-            params, csum_mode[4], csum_mode[5], body_bits_n)
+        with_bits = _header_stage(params, soft_fsk._csum0(softs)[1:],
+                                  rsum, body_bits_n)
+        without = _header_stage(params, csum_mode[4], csum_mode[5],
+                                body_bits_n)
         for a, b in zip(with_bits, without):
             assert torch.equal(a, b)
 

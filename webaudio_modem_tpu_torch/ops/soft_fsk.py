@@ -27,6 +27,11 @@ path of ``bench.py --family soft``) and the frame builders:
          uint8 plane (payload bytes + ok flag).
       Nothing in it waits for the device: no ``.item()``, no branch on
       a tensor, no copy to the host before the packed plane.
+      Each stage is a ``metrics`` timer (soft.k1, soft.sync,
+      soft.header, soft.select, soft.body, soft.pack), inside
+      ``decode_frames_batch_async``'s soft.dispatch beside soft.copy, and
+      its finalizer is soft.finalize around soft.finalize.wait: spans in
+      a ``torch.profiler`` trace while one records (``utils/trace.py``).
 
 The header and body helpers also serve the blind receiver
 (``ops/soft_blind.py``), which hands them windows of its soft ring
@@ -399,17 +404,6 @@ def _sync_peak(params: FSKParams, rsum: torch.Tensor):
     return t_peak, peak > threshold
 
 
-def _batch_header_stage(params: FSKParams, csum: torch.Tensor,
-                        rsum: torch.Tensor, body_bits_n: int,
-                        top_k: int = HEADER_TOP_K):
-    """Sync peak + header-candidate selection + ONE batched Viterbi.
-    ``csum`` is K1's inclusive cumsum of the softs [n_ds, B], ``rsum``
-    its R stream.  Returns (starts, headers, valid)."""
-    t_peak, peak_ok = _sync_peak(params, rsum)
-    return _candidate_headers(params, csum, t_peak, peak_ok, body_bits_n,
-                              top_k)
-
-
 def _body_llrs(params: FSKParams, csum: torch.Tensor,
                b_starts: torch.Tensor, payload_len: int) -> torch.Tensor:
     """Body LLR windows [body_bits, B] at each channel's grid start (K4
@@ -520,22 +514,29 @@ def _decode_frames_fused(params: FSKParams, samples: torch.Tensor,
     grid)."""
     B = samples.shape[0]
     ds = params.ds_samples_per_bit
-    state = fsk_demod.init_state(params, B, samples.device)
-    # only the softs' prefix sum and R are read: K1 drops the bit and amp
-    # streams and stores the inclusive cumsum in the softs slot
-    _, _, _, _, csum, rsum = fsk_seq.seq(
-        params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
-        samples.t().contiguous(), emit_bits=False, emit_amps=False,
-        emit_csum=True)
-    starts, headers, valid = _batch_header_stage(
-        params, csum, rsum, _body_coded_bits(payload_len),
-        HEADER_TOP_K if top_k is None else top_k)
-    found, _, st = _select_candidate(headers, starts, valid,
-                                     payload_len=payload_len)
-    b_starts = torch.where(found, st + HEADER_CODED_BITS * ds,
-                           torch.zeros_like(st))
-    bodies = _batch_body_stage(params, csum, b_starts, payload_len)
-    return _pack_bodies(bodies, payload_len, found)
+    with metrics.timer("soft.k1"):
+        state = fsk_demod.init_state(params, B, samples.device)
+        # only the softs' prefix sum and R are read: K1 drops the bit and
+        # amp streams and stores the inclusive cumsum in the softs slot
+        _, _, _, _, csum, rsum = fsk_seq.seq(
+            params, 0, state.front, state.ds_acc, state.bit_tail[-ds:],
+            samples.t().contiguous(), emit_bits=False, emit_amps=False,
+            emit_csum=True)
+    with metrics.timer("soft.sync"):
+        t_peak, peak_ok = _sync_peak(params, rsum)
+    with metrics.timer("soft.header"):
+        starts, headers, valid = _candidate_headers(
+            params, csum, t_peak, peak_ok, _body_coded_bits(payload_len),
+            HEADER_TOP_K if top_k is None else top_k)
+    with metrics.timer("soft.select"):
+        found, _, st = _select_candidate(headers, starts, valid,
+                                         payload_len=payload_len)
+        b_starts = torch.where(found, st + HEADER_CODED_BITS * ds,
+                               torch.zeros_like(st))
+    with metrics.timer("soft.body"):
+        bodies = _batch_body_stage(params, csum, b_starts, payload_len)
+    with metrics.timer("soft.pack"):
+        return _pack_bodies(bodies, payload_len, found)
 
 
 def decode_frames_batch(params: FSKParams, samples, payload_len: int,
@@ -561,38 +562,42 @@ def decode_frames_batch_async(params: FSKParams, samples,
         pending = [decode_frames_batch_async(params, s, n) for s in xs]
         results = [p() for p in pending]
     """
-    _check_rs(payload_len, rs_parity, body_code)
-    if not isinstance(samples, torch.Tensor):
-        samples = torch.tensor(np.asarray(samples, np.float32))
-    x = samples.to(device=resolve_device(device), dtype=torch.float32)
-    B, T = x.shape
-    # the seq stage at phase 0 emits T // 2 downsampled steps
-    if T // params.downsample_ratio < \
-            HEADER_CODED_BITS * params.ds_samples_per_bit:
-        # too short to hold even one coded header span
-        return lambda: [None] * B
+    with metrics.timer("soft.dispatch"):
+        _check_rs(payload_len, rs_parity, body_code)
+        if not isinstance(samples, torch.Tensor):
+            samples = torch.tensor(np.asarray(samples, np.float32))
+        x = samples.to(device=resolve_device(device), dtype=torch.float32)
+        B, T = x.shape
+        # the seq stage at phase 0 emits T // 2 downsampled steps
+        if T // params.downsample_ratio < \
+                HEADER_CODED_BITS * params.ds_samples_per_bit:
+            # too short to hold even one coded header span
+            return lambda: [None] * B
 
-    packed_dev = _decode_frames_fused(params, x, payload_len)
-    if packed_dev.is_cuda:
-        packed = torch.empty(packed_dev.shape, dtype=torch.uint8,
-                             pin_memory=True)
-        packed.copy_(packed_dev, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-    else:
-        packed, done = packed_dev, None
+        packed_dev = _decode_frames_fused(params, x, payload_len)
+        with metrics.timer("soft.copy"):
+            if packed_dev.is_cuda:
+                packed = torch.empty(packed_dev.shape, dtype=torch.uint8,
+                                     pin_memory=True)
+                packed.copy_(packed_dev, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                packed, done = packed_dev, None
 
     def finalize():
-        if done is not None:
-            done.synchronize()
-        plane = packed.numpy()
-        results = [None] * B
-        ok = np.nonzero(plane[:, payload_len])[0]
-        for b in ok:
-            results[b] = bytes(plane[b, :payload_len])
-        metrics.incr("soft.frames_decoded", len(ok))
-        metrics.incr("soft.frames_failed", B - len(ok))
-        return results
+        with metrics.timer("soft.finalize"):
+            with metrics.timer("soft.finalize.wait"):
+                if done is not None:
+                    done.synchronize()
+            plane = packed.numpy()
+            results = [None] * B
+            ok = np.nonzero(plane[:, payload_len])[0]
+            for b in ok:
+                results[b] = bytes(plane[b, :payload_len])
+            metrics.incr("soft.frames_decoded", len(ok))
+            metrics.incr("soft.frames_failed", B - len(ok))
+            return results
 
     return finalize
 
