@@ -76,13 +76,21 @@ Phases:
      K7 (K1 without R) at 50 baud (ds = 480), timed beside its plain
      version, and 50-baud streams decoding exactly;
   7. the soft main path: 2048 distinct random payloads at 8 dB decode
-     exactly with 1 / 2 / 2 launches of K1 / K4 / K3, and an erased
+     exactly with 1 / 2 / 2 / 2 launches of K1 / K4 / K3 / the CRC kernel
+     (header select, body gate and packing), and an erased
      channel decodes to None;
   8. soft timings at B=2048 and 4096 (per decode, realtime channels,
      each kernel beside its plain version and, for K4, torch.gather over
      window sums made beforehand, which is not K4's function; K3's and
      K4's device time in a CUDA graph beside it, ``graph_ms``),
      peak device memory, and a torch.profiler breakdown;
+  8b. the CRC kernel (``csrc/crc16.cu``) against its plain versions,
+     bit for bit, at the frames cell's shapes (B = 4096, payloads of 16,
+     45 and 133 bytes): ``pack_bodies`` over bodies in K3's layout
+     (sound, one flipped bit in every third, every fifth not found),
+     ``crc_rows`` over the payload rows, tails of 3 and 7 bits and the
+     header candidates [B, 8, 16]; timed against its byte bound and its
+     plain versions, enqueued and in a CUDA graph;
   9. K6 against its plain version on the card, every output exactly, at
      B=2048: noisy DBPSK chunks of distinct messages with state carried
      over three chunks, one of odd length (a ds_phase prefix); K6
@@ -108,7 +116,8 @@ Phases:
      random offsets (silence gaps of 2000-9000 samples): clean (every
      payload exact and in per-channel order; a frame not delivered only
      inside a false sync's refractory span, the reference's rule),
-     launches counted (K1 per quantum; K5, K4, K3 once per program); at
+     launches counted (K1 per quantum; K5, K4, K3 and the CRC kernel
+     once per program); at
      8 dB with noise drawn on the card (no wrong payload); mixed lengths
      1-64 from the headers alone; SoftFrameDecoder equal to the receiver
      on single channels; 256 channels through the kernels and through
@@ -239,6 +248,12 @@ K2_OPS_PER_STEP = 40
 K3_OPS_PER_STEP = 256
 K3_OPS_PER_NORM = 128
 K4_OPS_PER_OUT = 2
+# the CRC kernel per bit: the constant masked in (sub, and, xor), the
+# constant's step by x^-1 (and, sub, and, shift, xor), the byte's shift
+# and or
+CRC_OPS_PER_BIT = 10
+CRC_PAYLOADS = (16, 45, 133)      # the frames cell's payload lengths
+CRC_BATCH = 4096
 
 
 def _bench_config():
@@ -1105,25 +1120,27 @@ def phase_soft_kernels_vs_plain(device, rng):
 
 def phase_soft_main_path(device, rng):
     from webaudio_modem_tpu_torch.ops import soft_fsk
-    from webaudio_modem_tpu_torch.ops.kernels import align, fsk_seq, viterbi
+    from webaudio_modem_tpu_torch.ops.kernels import (align, crc16, fsk_seq,
+                                                      viterbi)
 
     params = _soft_params()
     B = SOFT_BATCHES[0]
     payloads, noisy = _soft_batch(params, rng, B, device)
     fsk_seq.launches = align.launches = viterbi.launches = 0
+    crc16.launches = 0
     t0 = time.perf_counter()
     out = soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
                                          device=device)
     seconds = time.perf_counter() - t0
     launches = {"fsk_seq": fsk_seq.launches, "align": align.launches,
-                "viterbi": viterbi.launches}
+                "viterbi": viterbi.launches, "crc16": crc16.launches}
     exact = sum(o == p for o, p in zip(out, payloads))
     print(f"  decode_frames_batch B={B}, {SOFT_PAYLOAD}-byte payloads at "
           f"{SOFT_SNR_DB:g} dB, T={noisy.shape[1]}: {exact}/{B} exact "
           f"({seconds:.3f} s host wall, first call); launches {launches}")
     if exact != B:
         raise RuntimeError(f"soft decode: only {exact}/{B} exact")
-    if launches != {"fsk_seq": 1, "align": 2, "viterbi": 2}:
+    if launches != {"fsk_seq": 1, "align": 2, "viterbi": 2, "crc16": 2}:
         raise RuntimeError(f"soft decode launches {launches}")
     erased = noisy.clone()
     erased[0] = 0.0
@@ -1304,6 +1321,97 @@ def phase_soft_timings(device, rng, card):
         except RuntimeError as exc:     # a measurement, not a check
             print(f"  profile: torch.profiler failed: {exc}")
     return timings
+
+
+def _crc_bodies(rng, B, pl, device):
+    """B frames' decoded body bits in K3's layout (a view of the first
+    8 (pl + 2) steps of a [T, B] plane): random payloads with their CRC,
+    one bit flipped in every third frame, every fifth frame not found.
+    Returns (bodies, found, the payload rows [B, 8 pl] uint8)."""
+    import numpy as np
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import crc16
+
+    pay = torch.from_numpy(rng.integers(0, 256, (B, pl), dtype=np.uint8))
+    pbits = ((pay[:, :, None] >> torch.arange(7, -1, -1)) & 1).reshape(B, -1)
+    crc = crc16.crc_rows_plain(pbits)
+    tbits = (crc[:, None] >> torch.arange(15, -1, -1)) & 1
+    bits = torch.cat([pbits, tbits], 1).to(torch.uint8)
+    rows = torch.arange(B)
+    flip = rows % 3 == 1
+    cols = torch.from_numpy(rng.integers(0, bits.shape[1], B))
+    bits[rows[flip], cols[flip]] ^= 1
+    plane = torch.zeros((bits.shape[1] + 6, B), dtype=torch.uint8)
+    plane[:bits.shape[1]] = bits.t()
+    plane = plane.to(device)
+    found = (rows % 5 != 2).to(device)
+    return plane[:bits.shape[1]].t(), found, pbits.to(torch.uint8).to(device)
+
+
+def phase_crc_vs_plain(device, rng, card):
+    """The CRC kernel against its plain versions, bit for bit, at the
+    frames cell's shapes, and timed: ``pack_bodies`` (one launch for the
+    soft decode's whole body gate and packing) and ``crc_rows`` (the
+    header select's CRC, the TX cohort's).  Returns (the largest
+    difference, 0, or it raises; the timings)."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops.kernels import crc16
+
+    B = CRC_BATCH
+    timings, errs = {}, []
+    for pl in CRC_PAYLOADS:
+        bodies, found, pbits = _crc_bodies(rng, B, pl, device)
+        n = bodies.shape[1]
+        before = crc16.launches
+        got = crc16.pack_bodies(bodies, found, pl)
+        torch.cuda.synchronize()
+        if crc16.launches != before + 1:
+            raise RuntimeError("pack_bodies: not one launch")
+        errs.append(_equal_or_raise(
+            f"pack_bodies B={B} payload {pl}", got,
+            crc16.pack_bodies_plain(bodies, found, pl)))
+        ok = int(got[:, pl].sum())
+        for label, rows in (("payload rows", pbits),
+                            ("K3's layout", bodies[:, :8 * pl]),
+                            ("a 3-bit tail", bodies[:, :8 * pl + 3]),
+                            ("a 7-bit tail", bodies[:, :8 * pl + 7])):
+            errs.append(_equal_or_raise(
+                f"crc_rows {label} B={B} payload {pl}",
+                crc16.crc_rows(rows), crc16.crc_rows_plain(rows)))
+        print(f"  CRC kernel B={B} payload {pl}: pack_bodies and crc_rows "
+              f"(payload rows, K3's layout, 3- and 7-bit tails) equal to "
+              f"their plain versions; {ok} of {B} frames pass", flush=True)
+        nbytes = n * B + B + (pl + 1) * B   # bits in, found, packed out
+        t = timings[f"pack_{pl}"] = _timing(
+            f"pack_bodies B={B} payload {pl} (bits [{B}, {n}] in K3's "
+            "layout)",
+            _cuda_ms(lambda: crc16.pack_bodies(bodies, found, pl), 50),
+            _cuda_ms(lambda: crc16.pack_bodies_plain(bodies, found, pl), 3),
+            nbytes, n * B * CRC_OPS_PER_BIT)
+        t["graph_ms"] = _graph_ms(
+            lambda: crc16.pack_bodies(bodies, found, pl), 50)
+        del bodies, found, pbits
+    heads = _crc_bodies(rng, 8 * B, 2, device)[0][:, :32]
+    heads = heads.reshape(B, 8, 32)[..., :16]
+    errs.append(_equal_or_raise(
+        f"crc_rows header candidates {list(heads.shape)}",
+        crc16.crc_rows(heads), crc16.crc_rows_plain(heads)))
+    t = timings["rows_header"] = _timing(
+        f"crc_rows header candidates {list(heads.shape)} (a view of K3's "
+        "plane)",
+        _cuda_ms(lambda: crc16.crc_rows(heads), 50),
+        _cuda_ms(lambda: crc16.crc_rows_plain(heads), 3),
+        heads.numel() + 4 * B * 8, heads.numel() * CRC_OPS_PER_BIT)
+    t["graph_ms"] = _graph_ms(lambda: crc16.crc_rows(heads), 50)
+    print("  crc_rows over the header candidates [B, 8, 16] read in place: "
+          "equal to its plain version")
+    for name, t in timings.items():
+        _print_timing(f"crc16 {name}", t, card)
+        print(f"    in a CUDA graph (no host gaps): {t['graph_ms']:.4f} ms "
+              "a call")
+    return max(errs), timings
 
 
 # ---------------------------------------------------------------------------
@@ -1746,11 +1854,11 @@ def _score(got, expected):
 
 
 def _blind_launch_counters():
-    from webaudio_modem_tpu_torch.ops.kernels import (align, cumsum0,
+    from webaudio_modem_tpu_torch.ops.kernels import (align, crc16, cumsum0,
                                                       fsk_seq, viterbi)
 
     return {"fsk_seq": fsk_seq, "cumsum0": cumsum0, "align": align,
-            "viterbi": viterbi}
+            "viterbi": viterbi, "crc16": crc16}
 
 
 def _reset_launches():
@@ -1894,7 +2002,7 @@ def phase_blind_main_path(device, rng, card):
     programs = status["programs"]
     n_prog = programs["header"] + programs["body"]
     if launches != {"fsk_seq": status["fed_quanta"], "cumsum0": n_prog,
-                    "align": n_prog, "viterbi": n_prog}:
+                    "align": n_prog, "viterbi": n_prog, "crc16": n_prog}:
         failures.append(f"blind launches {launches} vs {programs}")
     out["peak_mib"] = peak / 2 ** 20
     print(f"  peak device memory, clean run: {out['peak_mib']:.1f} MiB "
@@ -1912,7 +2020,8 @@ def phase_blind_main_path(device, rng, card):
     print(f"  launches per header program {per['header']}, per body "
           f"program {per['body']}")
     for name, n in per.items():
-        if n != {"fsk_seq": 0, "cumsum0": 1, "align": 1, "viterbi": 1}:
+        if n != {"fsk_seq": 0, "cumsum0": 1, "align": 1, "viterbi": 1,
+                 "crc16": 1}:
             failures.append(f"{name} program launches {n}")
     del rx
 
@@ -4149,7 +4258,8 @@ def _synth_check(device, card):
         f"one TX cohort, frames_synth_device_fn payload {pl}",
         lambda: fn(pay, device=device), 1, top=4)
     out["crc_host_ops"] = _host_ops(
-        f"its CRC alone, _crc16_bits_device over {pl} bytes",
+        f"its CRC alone, _crc16_bits_device over {pl} bytes (crc16."
+        "crc_rows: the bits cast to uint8, one kernel launch)",
         lambda: soft_fsk._crc16_bits_device(bits), 1, top=3)
     return out
 
@@ -4224,12 +4334,17 @@ def phase_soft_hubs(device, card):
     frame layer's decoder on the card.  Any ERROR record of the port's
     loggers fails the phase.  Returns the launches by path and the
     results."""
+    from webaudio_modem_tpu_torch.ops.kernels import crc16
+
     t_phase = time.perf_counter()
     synth = _synth_check(device, card)
     trap = _HubTrap()
+    crc_launches = [crc16.launches]
     try:
         soft = _soft_wire_run("soft", device, card)
+        crc_launches.append(crc16.launches)
         blind = _soft_wire_run("blind", device, card)
+        crc_launches.append(crc16.launches)
     finally:
         trap.close()
     frames = _frame_decoder_check(device, card)
@@ -4237,10 +4352,16 @@ def phase_soft_hubs(device, card):
     print(f"  phase 20: {seconds:.1f} s [{card}]")
     launches = {"soft_hub": {}, "blind_hub": {},
                 "fec_frame": {"viterbi": frames["card_k3_launches"]}}
-    for path, run in (("soft_hub", soft), ("blind_hub", blind)):
+    for i, (path, run) in enumerate((("soft_hub", soft),
+                                     ("blind_hub", blind))):
         for r in run["rounds"]:
             for k, v in r["launches"].items():
                 launches[path][k] = launches[path].get(k, 0) + v
+        # the CRC kernel over the whole run (warm-up and profiled round
+        # included): the TX cohorts' CRC and the decodes' select and pack
+        launches[path]["crc16"] = crc_launches[i + 1] - crc_launches[i]
+        print(f"  {path}: {launches[path]['crc16']} CRC kernel launches "
+              "over its run (TX cohorts, header selects, body packs)")
     return launches, {"soft_hub": soft, "blind_hub": blind,
                       "frames_synth": synth, "frame_decoder": frames,
                       "seconds": seconds}
@@ -4323,6 +4444,9 @@ def main() -> int:
     print("phase 8: soft-path timings")
     soft = phase_soft_timings(device, rng, card)
     _resident("phase 8")
+    print("phase 8b: the CRC kernel vs plain on the card, timed")
+    max_err["crc16"], crc = phase_crc_vs_plain(device, rng, card)
+    _resident("phase 8b")
     print("phase 9: DBPSK kernel vs plain on the card")
     for name, err in phase_psk_kernels_vs_plain(device, rng).items():
         max_err[name] = max(max_err.get(name, 0.0), err)
@@ -4377,7 +4501,8 @@ def main() -> int:
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
                 "source": f"webaudio_modem_tpu_torch/csrc/{src}",
-                "replaces": f"webaudio_modem_tpu/ops/pallas/{rep}",
+                "replaces": (f"webaudio_modem_tpu/ops/pallas/{rep}" if rep
+                             else None),
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": max_err[name],
@@ -4442,6 +4567,12 @@ def main() -> int:
              "blind_programs_ms": {k: blind[k] for k in (
                  "detector_ms", "header_prog_ms", "body_prog_ms")},
              "blind_main_path": blind_out}),
+        row("crc16", "crc16.cu", None, crc["pack_133"],
+            {"other_shapes": [
+                {k: crc[n][k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "graph_ms")}
+                for n in ("pack_16", "pack_45", "rows_header")],
+             "graph_ms": crc["pack_133"]["graph_ms"]}),
         row("fsk_stage_d", "fsk_framing.cu", "fsk_framing.py:47",
             k8["timing"],
             {**{k: k8["timing"][k] for k in (

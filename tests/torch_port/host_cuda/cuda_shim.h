@@ -4,12 +4,12 @@
 // after another; named barriers wait on a condition variable (a barrier
 // that waits more than 20 s fails the launch: cudaGetLastError() returns
 // 1); shared memory is one buffer, filled with 0xA5 before each block.
-// The warp primitives (__shfl_sync, __shfl_xor_sync, __ballot_sync,
-// __syncwarp) are a meeting of the warp's 32 threads: each deposits its
-// value, waits for the other 31 (20 s, then the launch fails), and reads
-// what it asked for.  Force-included (-include) ahead of each source;
-// test_torch_kernels_host.py fails when a CUDA call in csrc/ is not
-// emulated here.
+// __syncthreads is named barrier 0 over the block.  The warp primitives
+// (__shfl_sync, __shfl_xor_sync, __ballot_sync, __syncwarp) are a meeting
+// of the warp's 32 threads: each deposits its value, waits for the other
+// 31 (20 s, then the launch fails), and reads what it asked for.
+// Force-included (-include) ahead of each source; test_torch_kernels_host.py
+// fails when a CUDA call in csrc/ is not emulated here.
 #pragma once
 
 #include <math.h>
@@ -205,6 +205,8 @@ inline unsigned __ballot_sync(unsigned mask, int pred) {
   return w;
 }
 inline void __syncwarp(unsigned mask = 0xffffffffu) { wam_warp_meet(mask, 0); }
+// the block's barrier: named barrier 0 over all its threads
+inline void __syncthreads() { wam_barrier(0, blockDim.x, true); }
 
 inline int cudaGetLastError() {
   const int err = wam_failed ? 1 : 0;

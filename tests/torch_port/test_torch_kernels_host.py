@@ -1,6 +1,7 @@
-"""The CUDA sources of K1 / K7, K2 / K8, K6, K5, K3 and K4 built for the CPU with g++
-over a host emulation of CUDA (``host_cuda/``), against their plain
-versions, through the port's own wrappers.
+"""The CUDA sources of K1 / K7, K2 / K8, K6, K5, K3, K4 and the CRC
+kernel built for the CPU with g++ over a host emulation of CUDA
+(``host_cuda/``), against their plain versions, through the port's own
+wrappers.
 
 The card is the only place a kernel is timed or held exactly to its
 plain version (``chip_smoke.py``).  Here the emulation runs each block's
@@ -14,8 +15,9 @@ both placements of its decision records run here (with a smaller
 shared budget than the card's, so that the placements switch at short
 trellises).
 
-Tolerances: K2, K8, K5, K3 and K4 exactly (integer state machine and IEEE f32
-arithmetic, no transcendental).  K1 and K6 run ``atan2f`` from the
+Tolerances: K2, K8, K5, K3, K4 and the CRC kernel exactly (integer
+state machines, GF(2) arithmetic and IEEE f32 arithmetic, no
+transcendental).  K1 and K6 run ``atan2f`` from the
 host's C library where the plain versions run torch's, which may round
 differently: floats within atol 1e-4, a sliced bit may differ only where
 the plain soft value is within 1e-5 of the threshold, and R equals the
@@ -40,16 +42,16 @@ from torch_port_helpers import random_messages, signals
 from webaudio_modem_tpu_torch.models import psk as psk_model
 from webaudio_modem_tpu_torch.models.config import FSKConfig, FSKParams
 from webaudio_modem_tpu_torch.ops import fec, fsk_demod, psk
-from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
-                                                  fsk_framing, fsk_seq,
-                                                  psk_seq, viterbi)
+from webaudio_modem_tpu_torch.ops.kernels import (_build, align, crc16,
+                                                  cumsum0, fsk_framing,
+                                                  fsk_seq, psk_seq, viterbi)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 import chip_smoke as cs  # noqa: E402  (the card's edge cases, shared)
 
 HOST = Path(__file__).resolve().parent / "host_cuda"
 NAMES = ("fsk_seq", "fsk_framing", "psk_seq", "cumsum0", "viterbi",
-         "align")
+         "align", "crc16")
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?(?:\[[^\]]+\])?)\s*<<<(.*?)>>>\s*\(",
                     re.S)
 SHARED = re.compile(r"extern __shared__ ([\w ]+?)\s+(\w+)\[\];")
@@ -515,3 +517,113 @@ def test_k4_exact(on_host, case):
         got = align.aligned_wsum(csum, base, **kw)
         assert align.launches == before + 1
         assert torch.equal(got, want), (case, base[:4])
+
+
+# -- the CRC kernel ----------------------------------------------------------
+
+CRC_VECTORS = [(b"", 0xFFFF), (b"A", 0xB915), (b"123456789", 0x29B1),
+               (b"\x00", 0xE1F0), (b"\xff", 0xFF00)]
+
+
+def _k3_plane(bits: np.ndarray) -> torch.Tensor:
+    """0/1 rows [R, n] laid out as K3 returns them: the first n steps of
+    a [T, R] plane, transposed (bit i of row r at i * R + r)."""
+    R, n = bits.shape
+    plane = np.zeros((n + fec.K - 1, R), np.uint8)
+    plane[:n] = bits.T
+    view = torch.from_numpy(plane)[:n].t()
+    assert view.stride() == (1, R)
+    return view
+
+
+@pytest.mark.parametrize("data,want", CRC_VECTORS)
+def test_crc_rows_reference_vectors(on_host, data, want):
+    """The reference vectors of CRC-16-CCITT-FALSE, in one launch each."""
+    bits = torch.from_numpy(np.unpackbits(np.frombuffer(data, np.uint8)))
+    before = crc16.launches
+    got = int(crc16.crc_rows(bits[None])[0])
+    assert crc16.launches == before + 1
+    assert got == want == int(crc16.crc_rows_plain(bits[None])[0])
+
+
+@pytest.mark.parametrize("n_bytes", [0, 1, 2, 16, 45, 133, 255])
+@pytest.mark.parametrize("tail", [0, 3, 7])
+def test_crc_rows_exact(on_host, n_bytes, tail):
+    """``crc_rows`` equals its plain version bit for bit on random rows of
+    8 n_bytes + tail bits (a tail of fewer than 8 bits after the bytes),
+    at B = 33 in K3's layout and row-major (int32, cast on the way), and
+    over K3's header candidates [B, 8, 16] sliced from their 32 bits."""
+    n = 8 * n_bytes + tail
+    rng = np.random.default_rng(n)
+    bits = rng.integers(0, 2, (33, n), dtype=np.uint8)
+    want = crc16.crc_rows_plain(torch.from_numpy(bits))
+    for given in (_k3_plane(bits), torch.from_numpy(bits).to(torch.int32)):
+        before = crc16.launches
+        assert torch.equal(crc16.crc_rows(given), want)
+        assert crc16.launches == before + 1
+    heads = _k3_plane(rng.integers(0, 2, (33 * 8, 32), dtype=np.uint8))
+    heads = heads.reshape(33, 8, 32)[..., :16]
+    assert torch.equal(crc16.crc_rows(heads), crc16.crc_rows_plain(heads))
+
+
+@pytest.mark.parametrize("B", [1, 33, 4097])
+def test_crc_rows_batches(on_host, B):
+    """Partial and many blocks of 32 rows: one row, a row past a block,
+    4097 rows (128 blocks and one row), at a 2-byte row with a 3-bit
+    tail (one segment: the emulation pays per thread)."""
+    rng = np.random.default_rng(B)
+    bits = rng.integers(0, 2, (B, 8 * 2 + 3), dtype=np.uint8)
+    got = crc16.crc_rows(_k3_plane(bits))
+    assert torch.equal(got, crc16.crc_rows_plain(torch.from_numpy(bits)))
+
+
+def _bodies(rng, B, payload_len):
+    """K3-laid-out body bits of B frames with their CRCs, every third
+    frame's bits with one flipped (payload or trailer), every fifth not
+    found; returns (bodies, found, the ok column due)."""
+    pay = rng.integers(0, 256, (B, payload_len), dtype=np.uint8)
+    pbits = np.unpackbits(pay, axis=1)
+    crc = crc16.crc_rows_plain(torch.from_numpy(pbits)).numpy()
+    trailer = np.stack([crc >> 8, crc & 0xFF], 1).astype(np.uint8)
+    bits = np.concatenate([pbits, np.unpackbits(trailer, axis=1)], 1)
+    flipped = np.arange(B) % 3 == 1
+    cols = rng.integers(0, bits.shape[1], B)
+    bits[flipped, cols[flipped]] ^= 1
+    found = np.arange(B) % 5 != 2
+    return (_k3_plane(bits), torch.from_numpy(found),
+            found & ~flipped)
+
+
+@pytest.mark.parametrize("payload_len,B", [
+    (0, 33), (1, 1), (1, 33), (2, 33), (16, 33), (16, 4097), (45, 1),
+    (45, 33), (133, 33), (255, 1), (255, 33)])
+def test_crc_pack_bodies_exact(on_host, payload_len, B):
+    """``pack_bodies`` equals ``pack_bodies_plain`` bit for bit in one
+    launch: payload lengths 0 to 255, one row, partial blocks and 4097
+    rows; frames not found, frames whose body CRC fails by one flipped
+    bit (in the payload or in the trailer) and sound frames, each with
+    the ok flag due."""
+    rng = np.random.default_rng(payload_len * 10007 + B)
+    bodies, found, ok = _bodies(rng, B, payload_len)
+    want = crc16.pack_bodies_plain(bodies, found, payload_len)
+    before = crc16.launches
+    got = crc16.pack_bodies(bodies, found, payload_len)
+    assert crc16.launches == before + 1
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got[:, payload_len].numpy(), ok)
+
+
+def test_crc_pack_bodies_refuses(on_host):
+    """What the kernel cannot take raises: bits not uint8, a body of the
+    wrong width, ``found`` not bool, a tile past the shared memory."""
+    rng = np.random.default_rng(0)
+    bodies, found, _ = _bodies(rng, 4, 16)
+    with pytest.raises(TypeError):
+        crc16.pack_bodies(bodies.to(torch.int32), found, 16)
+    with pytest.raises(ValueError):
+        crc16.pack_bodies(bodies, found, 15)
+    with pytest.raises(TypeError):
+        crc16.pack_bodies(bodies, found.to(torch.uint8), 16)
+    wide = torch.zeros((4, 8 * 8002), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        crc16.pack_bodies(wide, found, 8000)

@@ -28,9 +28,9 @@ from webaudio_modem_tpu_torch.models.soft_modem import SoftModemCore
 from webaudio_modem_tpu_torch.models.v21 import V21Duplex, V21Station
 from webaudio_modem_tpu_torch.ops import (fec, filters, fsk_demod, fsk_mod,
                                           psk, soft_fsk)
-from webaudio_modem_tpu_torch.ops.kernels import (_build, align, cumsum0,
-                                                  fsk_framing, fsk_seq,
-                                                  psk_seq, viterbi)
+from webaudio_modem_tpu_torch.ops.kernels import (_build, align, crc16,
+                                                  cumsum0, fsk_framing,
+                                                  fsk_seq, psk_seq, viterbi)
 from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
 from webaudio_modem_tpu_torch.runtime import (BlindSoftFarmHub,
                                               DeviceFarmHub, FSKProcessor,
@@ -240,12 +240,12 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 def _launches():
     return (fsk_seq.launches, fsk_framing.launches,
             fsk_framing.stage_d_launches, viterbi.launches, align.launches,
-            psk_seq.launches, cumsum0.launches)
+            psk_seq.launches, cumsum0.launches, crc16.launches)
 
 
 @pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "fsk_stage_d",
                                     "viterbi", "align", "psk_seq",
-                                    "cumsum0"])
+                                    "cumsum0", "crc16_rows", "crc16_pack"])
 def test_wrappers_raise_off_cpu(kernel):
     """Tensors on a device that is neither the CPU nor CUDA are refused,
     not handed to the plain version."""
@@ -268,6 +268,13 @@ def test_wrappers_raise_off_cpu(kernel):
             viterbi.decode(z.reshape(4, 4, 2), 2)
         elif kernel == "cumsum0":
             cumsum0.csum0(z)
+        elif kernel == "crc16_rows":
+            crc16.crc_rows(z.to(torch.uint8))
+        elif kernel == "crc16_pack":
+            crc16.pack_bodies(torch.zeros((4, 24), dtype=torch.uint8,
+                                          device="meta"),
+                              torch.zeros(4, dtype=torch.bool,
+                                          device="meta"), 1)
         elif kernel == "psk_seq":
             st = psk.init_state(params, 4, "meta")
             psk_seq.seq(params, 0, st.front, st.ds_acc, st.ring,

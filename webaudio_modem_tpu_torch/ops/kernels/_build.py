@@ -8,8 +8,11 @@ that source, the ``csrc/`` headers it includes, directly or through
 another header (``seq_front.cuh`` and ``seq_pipe.cuh``, the front end
 and the first two pipeline warps K1 and K6 share; ``framing_step.cuh``,
 the step K2 and K8 share; ``warp_pipe.cuh``, the hand-over primitives),
-and the flags, and reused while none of them changes.  ``build`` starts one nvcc per missing library, all at once, and
-waits for them.
+and the flags, and reused while none of them changes.  ``build`` starts
+one nvcc per missing library, all at once, and waits for them;
+``library`` runs it over every source at its first miss, so a process's
+first launch builds the libraries its later launches need in the same
+wait.
 
 Floating-point flags: no ``--use_fast_math`` (``atan2f``, ``sqrtf`` and
 division stay IEEE) and ``-fmad=false``, so each kernel rounds op for op
@@ -120,10 +123,11 @@ def build(which: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first call."""
+    """The loaded library of ``csrc/<name>.cu``; a miss builds every
+    library not built yet, one nvcc each, started together."""
     lib = _libs.get(name)
     if lib is None:
-        lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+        lib = _libs[name] = ctypes.CDLL(str(build()[name]))
     return lib
 
 

@@ -20,11 +20,12 @@ path of ``bench.py --family soft``) and the frame builders:
          windowed-|LLR| score, and ONE batched Viterbi over the B x k
          candidates (K3, ``ops/kernels/viterbi.py``);
       3. ``_select_candidate``: the first candidate whose header CRC and
-         LEN pass;
+         LEN pass (the CRC one launch of ``ops/kernels/crc16.py``);
       4. the body LLR windows at each channel's chosen grid (K4 at
          stride ds) and ONE batched Viterbi over the B bodies (K3);
       5. ``_pack_bodies``: the body CRC gate and one [B, payload + 1]
-         uint8 plane (payload bytes + ok flag).
+         uint8 plane (payload bytes + ok flag), one launch of
+         ``crc16.pack_bodies``.
       Nothing in it waits for the device: no ``.item()``, no branch on
       a tensor, no copy to the host before the packed plane.
       Each stage is a ``metrics`` timer (soft.k1, soft.sync,
@@ -57,8 +58,8 @@ import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod
-from webaudio_modem_tpu_torch.ops.kernels import align, cumsum0, fsk_seq
-from webaudio_modem_tpu_torch.utils.crc16 import CRC16, TABLE
+from webaudio_modem_tpu_torch.ops.kernels import align, crc16, cumsum0, fsk_seq
+from webaudio_modem_tpu_torch.utils.crc16 import CRC16
 from webaudio_modem_tpu_torch.utils.device import resolve_device
 from webaudio_modem_tpu_torch.utils.trace import metrics
 
@@ -168,8 +169,8 @@ def frames_synth_device_fn(params: FSKParams, payload_len: int):
     prefix and the bits of every sample row; this uploads only the
     payload bytes and runs on the device:
 
-      * CRC16 per row: the batched table recurrence
-        ``_crc16_bits_device`` over the payload bits;
+      * CRC16 per row: ``_crc16_bits_device`` over the payload bits
+        (one launch of ``crc16.crc_rows`` on the card);
       * the rate-1/2 K=7 conv encode: the shifted-column XOR form of
         ``fec.conv_encode_bits_batch``;
       * the exact integer phase prefix: within the coded body the per-bit
@@ -438,7 +439,7 @@ def _select_candidate(headers: torch.Tensor, starts: torch.Tensor,
                             device=hb.device)
     ln = (hb[..., :16] * w16).sum(-1)
     crc = (hb[..., 16:32] * w16).sum(-1)
-    ok = valid & (_crc16_bits_device(hb[..., :16]) == crc)
+    ok = valid & (_crc16_bits_device(headers[..., :16]) == crc)
     if payload_len is not None:
         ok = ok & (ln == payload_len)
     if max_len is not None:
@@ -456,49 +457,16 @@ def _pack_bodies(bodies: torch.Tensor, payload_len: int,
     """Body CRC gate + packing: decoded body bits [B, 8*(payload_len+2)]
     -> ONE [B, payload_len + 1] uint8 plane (payload bytes + ok flag),
     ok = ``found`` AND the CRC16 over the payload bytes matches the
-    frame's trailing CRC bytes."""
-    B = bodies.shape[0]
-    bi = bodies.to(torch.int32)
-    w8 = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=bi.device)
-    body_bytes = (bi.reshape(B, payload_len + 2, 8) * w8).sum(-1)
-    bcrc = (body_bytes[:, payload_len] << 8) | body_bytes[:, payload_len + 1]
-    body_ok = found & (_crc16_bits_device(bi[:, :8 * payload_len]) == bcrc)
-    packed = torch.cat([body_bytes[:, :payload_len],
-                        body_ok[:, None].to(torch.int32)], dim=1)
-    return packed.to(torch.uint8)
-
-
-@functools.lru_cache(maxsize=8)
-def _crc_table(device: torch.device) -> torch.Tensor:
-    """The CRC16 table on ``device``, copied there once (a copy from host
-    memory waits for the stream)."""
-    return torch.tensor(TABLE, dtype=torch.int32, device=device)
+    frame's trailing CRC bytes: one launch of ``crc16.pack_bodies`` on
+    the card, its plain version on the CPU."""
+    return crc16.pack_bodies(bodies, found, payload_len)
 
 
 def _crc16_bits_device(bits: torch.Tensor) -> torch.Tensor:
     """CRC-16-CCITT-FALSE over an MSB-first bit stream, on the tensor's
-    device: bits [..., n] 0/1 -> crc [...] int32.  Whole bytes go
-    through the 256-entry table recurrence (a per-lane gather is native
-    on the card), a tail of fewer than 8 bits through the bit-serial
-    shift/XOR form (poly 0x1021, init 0xFFFF)."""
-    b = bits.to(torch.int32)
-    n = b.shape[-1]
-    crc = torch.full(b.shape[:-1], 0xFFFF, dtype=torch.int32,
-                     device=b.device)
-    n_bytes = n // 8
-    if n_bytes:
-        table = _crc_table(b.device)
-        w8 = 1 << torch.arange(7, -1, -1, dtype=torch.int32,
-                               device=b.device)
-        byts = (b[..., :8 * n_bytes].reshape(b.shape[:-1] + (n_bytes, 8))
-                * w8).sum(-1)
-        for j in range(n_bytes):
-            idx = ((crc >> 8) ^ byts[..., j]) & 0xFF
-            crc = ((crc << 8) & 0xFFFF) ^ table[idx.to(torch.int64)]
-    for j in range(8 * n_bytes, n):
-        msb = (crc >> 15) & 1
-        crc = ((crc << 1) & 0xFFFF) ^ ((msb ^ b[..., j]) * 0x1021)
-    return crc
+    device: bits [..., n] 0/1 -> crc [...] int32 (``crc16.crc_rows``:
+    one launch on the card, the table recurrence on the CPU)."""
+    return crc16.crc_rows(bits)
 
 
 # ---------------------------------------------------------------------------
