@@ -77,8 +77,8 @@ Phases:
      version, and 50-baud streams decoding exactly;
   7. the soft main path: 2048 distinct random payloads at 8 dB decode
      exactly with 1 / 2 / 2 / 2 launches of K1 / K4 / K3 / the CRC kernel
-     (header select, body gate and packing), and an erased
-     channel decodes to None;
+     (header select, body gate and packing) and 1 of the sync-peak
+     kernel, and an erased channel decodes to None;
   8. soft timings at B=2048 and 4096 (per decode, realtime channels,
      each kernel beside its plain version and, for K4, torch.gather over
      window sums made beforehand, which is not K4's function; K3's and
@@ -91,6 +91,13 @@ Phases:
      ``crc_rows`` over the payload rows, tails of 3 and 7 bits and the
      header candidates [B, 8, 16]; timed against its byte bound and its
      plain versions, enqueued and in a CUDA graph;
+  8c. the sync-peak kernel (``csrc/sync_peak.cu``) against its plain
+     version (the band GEMM and its glue), t_peak and the gate bit for
+     bit in both lanes (the reference's pattern by its recurrence in
+     fp16, two channels a thread; any pattern in f32, one), at the
+     frames cell's shapes (B = 4096, 16 / 45 / 133-byte frames at 8 dB,
+     R from K1 over the batch); timed against its byte bound and the
+     plain version, enqueued and in a CUDA graph, the f32 lane beside;
   9. K6 against its plain version on the card, every output exactly, at
      B=2048: noisy DBPSK chunks of distinct messages with state carried
      over three chunks, one of odd length (a ds_phase prefix); K6
@@ -1121,26 +1128,28 @@ def phase_soft_kernels_vs_plain(device, rng):
 def phase_soft_main_path(device, rng):
     from webaudio_modem_tpu_torch.ops import soft_fsk
     from webaudio_modem_tpu_torch.ops.kernels import (align, crc16, fsk_seq,
-                                                      viterbi)
+                                                      sync_peak, viterbi)
 
     params = _soft_params()
     B = SOFT_BATCHES[0]
     payloads, noisy = _soft_batch(params, rng, B, device)
     fsk_seq.launches = align.launches = viterbi.launches = 0
-    crc16.launches = 0
+    crc16.launches = sync_peak.launches = 0
     t0 = time.perf_counter()
     out = soft_fsk.decode_frames_batch(params, noisy, SOFT_PAYLOAD,
                                          device=device)
     seconds = time.perf_counter() - t0
     launches = {"fsk_seq": fsk_seq.launches, "align": align.launches,
-                "viterbi": viterbi.launches, "crc16": crc16.launches}
+                "viterbi": viterbi.launches, "crc16": crc16.launches,
+                "sync_peak": sync_peak.launches}
     exact = sum(o == p for o, p in zip(out, payloads))
     print(f"  decode_frames_batch B={B}, {SOFT_PAYLOAD}-byte payloads at "
           f"{SOFT_SNR_DB:g} dB, T={noisy.shape[1]}: {exact}/{B} exact "
           f"({seconds:.3f} s host wall, first call); launches {launches}")
     if exact != B:
         raise RuntimeError(f"soft decode: only {exact}/{B} exact")
-    if launches != {"fsk_seq": 1, "align": 2, "viterbi": 2, "crc16": 2}:
+    if launches != {"fsk_seq": 1, "align": 2, "viterbi": 2, "crc16": 2,
+                    "sync_peak": 1}:
         raise RuntimeError(f"soft decode launches {launches}")
     erased = noisy.clone()
     erased[0] = 0.0
@@ -1411,6 +1420,72 @@ def phase_crc_vs_plain(device, rng, card):
         _print_timing(f"crc16 {name}", t, card)
         print(f"    in a CUDA graph (no host gaps): {t['graph_ms']:.4f} ms "
               "a call")
+    return max(errs), timings
+
+
+def phase_sync_vs_plain(device, rng, card):
+    """The sync-peak kernel against its plain version, bit for bit, at the
+    frames cell's shapes: R from K1 over B = 4096 frames at 8 dB of each
+    payload length, t_peak and the gate of both lanes equal to the plain
+    version's, one launch each; timed enqueued and in a CUDA graph beside
+    its byte bound (R read once, t_peak and the gate written) and the
+    plain version (the band GEMM and its glue), no library call.
+    Returns (the largest difference, 0, or it raises; the timings)."""
+    import torch
+
+    from webaudio_modem_tpu_torch.ops import fsk_demod, soft_fsk
+    from webaudio_modem_tpu_torch.ops.kernels import fsk_seq, sync_peak
+
+    params = _soft_params()
+    ds = params.ds_samples_per_bit
+    taps = len(params.pattern_bits) - 1
+    B = CRC_BATCH
+    timings, errs = {}, []
+    for pl in CRC_PAYLOADS:
+        sig = soft_fsk.encode_frames_batch(params, _messages(rng, B, pl),
+                                           device=device)
+        sigma = (float(sig.double().pow(2).mean())
+                 / 10 ** (SOFT_SNR_DB / 10)) ** 0.5
+        gen = torch.Generator(device=device).manual_seed(pl)
+        x = sig + sigma * torch.randn(sig.shape, generator=gen,
+                                      device=device)
+        del sig
+        state = fsk_demod.init_state(params, B, device)
+        rsum = fsk_seq.seq(params, 0, state.front, state.ds_acc,
+                           state.bit_tail[-ds:], x.t().contiguous(),
+                           **CSUM_FLAGS)[5]
+        del x, state
+        n_ds = rsum.shape[0]
+        want = sync_peak.sync_peak_plain(params, rsum)
+        for lane, fast in (("fast", True), ("f32", False)):
+            before = sync_peak.launches
+            got = sync_peak._launch(params, rsum, fast=fast)
+            torch.cuda.synchronize()
+            if sync_peak.launches != before + 1:
+                raise RuntimeError("sync_peak: not one launch")
+            for name, g, w in zip(("t_peak", "peak_ok"), got, want):
+                errs.append(_equal_or_raise(
+                    f"sync_peak {lane} lane B={B} payload {pl} {name}", g, w))
+        if not sync_peak._fast(params, rsum):
+            raise RuntimeError("sync_peak: the cell's shape left the fast "
+                               "lane")
+        print(f"  sync_peak B={B} payload {pl} (R [{n_ds}, {B}]): t_peak and "
+              f"the gate of both lanes equal to the plain version's; "
+              f"{int(want[1].sum())} of {B} peaks over the gate", flush=True)
+        t = timings[f"sync_{pl}"] = _timing(
+            f"sync_peak B={B} payload {pl} (R [{n_ds}, {B}] bf16)",
+            _cuda_ms(lambda: sync_peak.sync_peak(params, rsum), 50),
+            _cuda_ms(lambda: sync_peak.sync_peak_plain(params, rsum), 5),
+            rsum.numel() * 2 + 9 * B, n_ds * B * taps)
+        t["graph_ms"] = _graph_ms(lambda: sync_peak.sync_peak(params, rsum),
+                                  50)
+        t["f32_graph_ms"] = _graph_ms(
+            lambda: sync_peak._launch(params, rsum, fast=False), 20)
+        del rsum, want, got
+    for name, t in timings.items():
+        _print_timing(name, t, card)
+        print(f"    in a CUDA graph (no host gaps): {t['graph_ms']:.4f} ms "
+              f"a call; the f32 lane {t['f32_graph_ms']:.4f} ms")
     return max(errs), timings
 
 
@@ -4447,6 +4522,9 @@ def main() -> int:
     print("phase 8b: the CRC kernel vs plain on the card, timed")
     max_err["crc16"], crc = phase_crc_vs_plain(device, rng, card)
     _resident("phase 8b")
+    print("phase 8c: the sync-peak kernel vs plain on the card, timed")
+    max_err["sync_peak"], sync = phase_sync_vs_plain(device, rng, card)
+    _resident("phase 8c")
     print("phase 9: DBPSK kernel vs plain on the card")
     for name, err in phase_psk_kernels_vs_plain(device, rng).items():
         max_err[name] = max(max_err.get(name, 0.0), err)
@@ -4573,6 +4651,14 @@ def main() -> int:
                                         "bound_ms", "bound_by", "graph_ms")}
                 for n in ("pack_16", "pack_45", "rows_header")],
              "graph_ms": crc["pack_133"]["graph_ms"]}),
+        row("sync_peak", "sync_peak.cu", None, sync["sync_133"],
+            {"other_shapes": [
+                {k: sync[n][k] for k in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "graph_ms")}
+                for n in ("sync_16", "sync_45")],
+             "graph_ms": sync["sync_133"]["graph_ms"],
+             "f32_lane_graph_ms": {n: sync[n]["f32_graph_ms"]
+                                   for n in sync}}),
         row("fsk_stage_d", "fsk_framing.cu", "fsk_framing.py:47",
             k8["timing"],
             {**{k: k8["timing"][k] for k in (

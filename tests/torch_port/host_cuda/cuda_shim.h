@@ -41,7 +41,7 @@ struct wam_dim3 {
 };
 typedef wam_dim3 dim3;
 extern thread_local wam_dim3 threadIdx;
-extern wam_dim3 blockIdx, blockDim;
+extern wam_dim3 blockIdx, blockDim, gridDim;
 alignas(128) extern unsigned char wam_smem[1 << 18];
 
 typedef void* cudaStream_t;
@@ -81,6 +81,75 @@ inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned shift) {
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+
+// fp16: binary16 bits, rounded to nearest even from f32; the arithmetic
+// in f32, rounded once to fp16 (exact wherever the f32 result is, as on
+// the card; the sync kernel adds integers below 2^11)
+struct __half { uint16_t x; };
+struct alignas(4) __half2 { __half x, y; };
+inline float wam_half2float(__half h) {
+  const uint32_t sign = uint32_t(h.x & 0x8000u) << 16;
+  const uint32_t exp = (h.x >> 10) & 0x1f, man = h.x & 0x3ffu;
+  if (exp == 0x1f) return __uint_as_float(sign | 0x7f800000u | (man << 13));
+  if (exp == 0) {                                   // zero, subnormal
+    const float f = ldexpf(float(man), -24);
+    return sign ? -f : f;
+  }
+  return __uint_as_float(sign | ((exp + 112) << 23) | (man << 13));
+}
+inline __half wam_float2half(float f) {
+  const uint32_t u = __float_as_uint(f);
+  const uint16_t sign = uint16_t((u >> 16) & 0x8000u);
+  __half h;
+  if ((u & 0x7fffffffu) > 0x7f800000u) { h.x = sign | 0x7e00u; return h; }
+  const float a = fabsf(f);
+  if (a >= 65520.0f) { h.x = sign | 0x7c00u; return h; }   // to infinity
+  if (a < ldexpf(1.0f, -14)) {                       // subnormal: units 2^-24
+    h.x = sign | uint16_t(nearbyintf(ldexpf(a, 24)));
+    return h;
+  }
+  const uint32_t ua = __float_as_uint(a);
+  uint32_t r = ua + 0xfffu + ((ua >> 13) & 1u);      // round to nearest even
+  h.x = sign | uint16_t(((r >> 23) - 112) << 10 | ((r >> 13) & 0x3ffu));
+  return h;
+}
+inline __half2 __floats2half2_rn(float lo, float hi) {
+  return __half2{wam_float2half(lo), wam_float2half(hi)};
+}
+inline float __low2float(__half2 v) { return wam_half2float(v.x); }
+inline float __high2float(__half2 v) { return wam_half2float(v.y); }
+inline __half2 __hfma2(__half2 a, __half2 b, __half2 c) {
+  return __floats2half2_rn(
+      fmaf(__low2float(a), __low2float(b), __low2float(c)),
+      fmaf(__high2float(a), __high2float(b), __high2float(c)));
+}
+inline __half2 __hadd2(__half2 a, __half2 b) {
+  return __floats2half2_rn(__low2float(a) + __low2float(b),
+                           __high2float(a) + __high2float(b));
+}
+inline __half2 __hsub2(__half2 a, __half2 b) {
+  return __floats2half2_rn(__low2float(a) - __low2float(b),
+                           __high2float(a) - __high2float(b));
+}
+inline __half2 __hmax2(__half2 a, __half2 b) {
+  return __floats2half2_rn(fmaxf(__low2float(a), __low2float(b)),
+                           fmaxf(__high2float(a), __high2float(b)));
+}
+
+// atomics over the block's threads (the blocks run one after another)
+inline unsigned long long atomicMax(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(
+                        p, &old, v, false, __ATOMIC_SEQ_CST,
+                        __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 
 struct WamBarrier { int count = 0; long gen = 0; };
 extern std::mutex wam_mu;
@@ -225,6 +294,7 @@ void wam_launch(K kernel, wam_dim3 grid, wam_dim3 block, size_t smem,
     return;
   }
   blockDim = block;
+  gridDim = grid;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x && !wam_failed; ++bx) {

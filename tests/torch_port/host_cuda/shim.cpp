@@ -3,7 +3,7 @@
 #include "warp_pipe.cuh"
 
 thread_local wam_dim3 threadIdx;
-wam_dim3 blockIdx, blockDim;
+wam_dim3 blockIdx, blockDim, gridDim;
 alignas(128) unsigned char wam_smem[1 << 18];
 std::mutex wam_mu;
 std::condition_variable wam_cv;

@@ -66,13 +66,17 @@ HOST_K3_BUDGET = 16 * 1024
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
+    return build_host_libs(tmp_path_factory.mktemp("host_kernels"), NAMES)
+
+
+def build_host_libs(out, names):
     """The kernels' sources, launches and dynamic shared arrays rewritten
-    for the emulation, built with g++ (one process per source)."""
+    for the emulation into ``out``, ``names`` built with g++ (one process
+    per source): {name: the loaded library}."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host emulation needs a C++17 "
                     "compiler")
-    out = tmp_path_factory.mktemp("host_kernels")
     for src in _build.CSRC_DIR.iterdir():
         if src.suffix not in (".cu", ".cuh"):
             continue
@@ -96,8 +100,8 @@ def host_libs(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         return name, ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(len(NAMES)) as pool:
-        return dict(pool.map(build, NAMES))
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(pool.map(build, names))
 
 
 @pytest.fixture

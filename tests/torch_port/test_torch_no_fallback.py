@@ -30,7 +30,8 @@ from webaudio_modem_tpu_torch.ops import (fec, filters, fsk_demod, fsk_mod,
                                           psk, soft_fsk)
 from webaudio_modem_tpu_torch.ops.kernels import (_build, align, crc16,
                                                   cumsum0, fsk_framing,
-                                                  fsk_seq, psk_seq, viterbi)
+                                                  fsk_seq, psk_seq,
+                                                  sync_peak, viterbi)
 from webaudio_modem_tpu_torch.ops.soft_blind import BlindSoftBatchReceiver
 from webaudio_modem_tpu_torch.runtime import (BlindSoftFarmHub,
                                               DeviceFarmHub, FSKProcessor,
@@ -240,12 +241,14 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 def _launches():
     return (fsk_seq.launches, fsk_framing.launches,
             fsk_framing.stage_d_launches, viterbi.launches, align.launches,
-            psk_seq.launches, cumsum0.launches, crc16.launches)
+            psk_seq.launches, cumsum0.launches, crc16.launches,
+            sync_peak.launches)
 
 
 @pytest.mark.parametrize("kernel", ["fsk_seq", "fsk_framing", "fsk_stage_d",
                                     "viterbi", "align", "psk_seq",
-                                    "cumsum0", "crc16_rows", "crc16_pack"])
+                                    "cumsum0", "crc16_rows", "crc16_pack",
+                                    "sync_peak"])
 def test_wrappers_raise_off_cpu(kernel):
     """Tensors on a device that is neither the CPU nor CUDA are refused,
     not handed to the plain version."""
@@ -275,6 +278,8 @@ def test_wrappers_raise_off_cpu(kernel):
                                           device="meta"),
                               torch.zeros(4, dtype=torch.bool,
                                           device="meta"), 1)
+        elif kernel == "sync_peak":
+            sync_peak.sync_peak(params, z.bfloat16())
         elif kernel == "psk_seq":
             st = psk.init_state(params, 4, "meta")
             psk_seq.seq(params, 0, st.front, st.ds_acc, st.ring,

@@ -14,7 +14,8 @@ path of ``bench.py --family soft``) and the frame builders:
       1. K1 (``ops/kernels/fsk_seq.py``) with the bit and amp streams
          dropped and the softs slot holding their inclusive f32 running
          sum (``emit_csum``), plus R;
-      2. the sync peak from R (``fsk_demod._sync_ratios_from_r``), the
+      2. the sync peak from R (one launch of ``ops/kernels/sync_peak.py``:
+         the banded correlation, its first maximum and gate), the
          header LLR windows at every grid offset around it (K4 at
          stride 1, ``ops/kernels/align.py``), top-k pruning by the
          windowed-|LLR| score, and ONE batched Viterbi over the B x k
@@ -58,7 +59,8 @@ import torch
 
 from webaudio_modem_tpu_torch.models.config import FSKParams
 from webaudio_modem_tpu_torch.ops import fec, fsk_demod, fsk_mod
-from webaudio_modem_tpu_torch.ops.kernels import align, crc16, cumsum0, fsk_seq
+from webaudio_modem_tpu_torch.ops.kernels import (align, crc16, cumsum0,
+                                                  fsk_seq, sync_peak)
 from webaudio_modem_tpu_torch.utils.crc16 import CRC16
 from webaudio_modem_tpu_torch.utils.device import resolve_device
 from webaudio_modem_tpu_torch.utils.trace import metrics
@@ -390,19 +392,11 @@ def _candidate_headers(params: FSKParams, csum: torch.Tensor,
 
 
 def _sync_peak(params: FSKParams, rsum: torch.Tensor):
-    """Sync match ratios from R (a zero carried tail: a one-shot
-    decode's all-zero window prefix), their first maximum t_peak [B] and
-    whether it clears the sync threshold."""
-    ds = params.ds_samples_per_bit
-    W = params.sync_window
-    B = rsum.shape[1]
-    ratios = fsk_demod._sync_ratios_from_r(
-        params, torch.zeros((W - ds, B), dtype=rsum.dtype,
-                            device=rsum.device), rsum)
-    t_peak = torch.argmax(ratios, dim=0)            # first maximum
-    peak = torch.take_along_dim(ratios, t_peak[None, :], dim=0)[0]
-    threshold = float(np.float32(params.config.sync_threshold))
-    return t_peak, peak > threshold
+    """The first maximum t_peak [B] of the sync match ratios from R (a
+    zero carried tail: a one-shot decode's all-zero window prefix) and
+    whether it clears the sync threshold: one launch of
+    ``sync_peak.sync_peak`` on the card, its plain version on the CPU."""
+    return sync_peak.sync_peak(params, rsum)
 
 
 def _body_llrs(params: FSKParams, csum: torch.Tensor,
