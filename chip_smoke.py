@@ -59,7 +59,7 @@ Phases:
      and decodes 4096 distinct 13-byte messages exactly, counting
      launches; FSKCore round-trips b"Hello, World!";
   5. per-chunk times (CUDA events) of demod_chunk through the kernels
-     and through the plain versions, at B=2048 and 4096;
+     at B=2048 and 4096;
   6. the soft path's kernels against their plain versions, exactly, on
      the decode's own intermediate planes at B=2048: K1 with the bit
      and amp streams dropped and the softs' inclusive running sum (also
@@ -109,11 +109,11 @@ Phases:
  10. the DBPSK main path: ModemFarm(PSKConfig(), batch=4096) decodes 4096
      distinct 13-byte messages exactly, counting launches; PSKCore
      round-trips b"Hello, World!"; the signal quality is finite;
- 11. DBPSK timings: demod_chunk per chunk at B=2048 and 4096 (and its
-     plain version once), K6 beside its plain version and its bound at
-     D = 20 (also on tools/turns.py seq's shorter input), 480 and 960,
-     and K6's ring placement timed in turns against a copy built with its
-     rings in device memory at every D;
+ 11. DBPSK timings: demod_chunk per chunk at B=2048 and 4096, K6
+     beside its plain version and its bound at D = 20 (also on
+     tools/turns.py seq's shorter input), 480 and 960, and K6's ring
+     placement timed in turns against a copy built with its rings in
+     device memory at every D;
  12. K5 against its plain version, exactly (0 mismatches), at the blind
      path's window shapes [7200 / 14400 / 91200, 4096] and at [37, 3]
      and [0, 5]; against np.cumsum of the host copy at two of them; at
@@ -234,10 +234,6 @@ SOFT_BATCHES = (2048, 4096)
 SOFT_PAYLOAD = 16                 # bytes (bench.py --family soft)
 SOFT_SNR_DB = 8.0
 LONG_PAYLOAD = 100                # the long-trellis check: T = 822
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s
-# outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # operations per element, counted from the kernels' sources: K1 does
 # ~54 per full-rate sample (AGC 10, band-pass 9, mix 2, NCO rotation
 # and renorm 13, I/Q low-passes 18, downsample sums 2) and ~40 per
@@ -360,9 +356,13 @@ def _nbytes(*tensors):
 def _bound(n_bytes, n_ops):
     """(ms, "bytes" | "operations"): the least time the card could take,
     the larger of the bytes over HBM bandwidth and the operations over
-    the f32 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_OPS_PER_S
+    the f32 peak outside the tensor cores (the benchmark's published
+    peaks, ``wam_bench/peaks.json``)."""
+    from wam_bench.stats import peaks
+
+    peak = peaks()
+    t_bytes = n_bytes / peak["hbm_bytes_per_s"]
+    t_ops = n_ops / peak["f32_ops_per_s"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -674,30 +674,24 @@ def phase_timings(device, rng, card):
         sig = fsk_mod.modulate_batch(params, _messages(rng, B, 13), device)
         n = sig.shape[1] // CHUNK
         chunks = [sig[:, i * CHUNK:(i + 1) * CHUNK] for i in range(n)]
-        for plain, reps in ((False, 25), (True, 2)):
-            st = [fsk_demod.init_state(params, B, device), 0]
+        st = [fsk_demod.init_state(params, B, device), 0]
 
-            def step():
-                st[0], _ = fsk_demod.demod_chunk(
-                    params, 0, st[0], chunks[st[1] % n], plain=plain)
-                st[1] += 1
-            if not plain:
-                for _ in range(3):
-                    step()
-            ms = _cuda_ms(step, reps)
-            path = "plain" if plain else "kernels"
-            print(f"  demod_chunk B={B} {path}: {ms:.3f} ms per 0.1 s "
-                  f"chunk, {B * AUDIO_S_PER_CHUNK / (ms / 1e3):,.0f} "
-                  f"realtime channels [{card}]")
-            if B == MAIN_BATCH and not plain:
-                try:
-                    _profile(f"hard demod_chunk B={B}",
-                             lambda: [step() for _ in range(10)], 10, ms,
-                             card)
-                except RuntimeError as exc:     # a measurement, not a check
-                    print(f"  profile: torch.profiler failed: {exc}")
-
+        def step():
+            st[0], _ = fsk_demod.demod_chunk(params, 0, st[0],
+                                             chunks[st[1] % n])
+            st[1] += 1
+        for _ in range(3):
+            step()
+        ms = _cuda_ms(step, 25)
+        print(f"  demod_chunk B={B} kernels: {ms:.3f} ms per 0.1 s "
+              f"chunk, {B * AUDIO_S_PER_CHUNK / (ms / 1e3):,.0f} "
+              f"realtime channels [{card}]")
         if B == MAIN_BATCH:
+            try:
+                _profile(f"hard demod_chunk B={B}",
+                         lambda: [step() for _ in range(10)], 10, ms, card)
+            except RuntimeError as exc:     # a measurement, not a check
+                print(f"  profile: torch.profiler failed: {exc}")
             # each kernel beside its plain version at the main path's shape
             state = st[0]
             x = chunks[0].t().contiguous()
@@ -1665,26 +1659,19 @@ def phase_psk_timings(device, rng, card):
         sig = psk.modulate_batch(params, _messages(rng, B, 13), device)
         n = sig.shape[1] // CHUNK
         chunks = [sig[:, i * CHUNK:(i + 1) * CHUNK] for i in range(n)]
-        # the plain version once, at the smaller B; ``step`` closes over
-        # ``plain``, so the loop must end on the kernels' run at MAIN_BATCH
-        runs = ((False, 25), (True, 1)) if B == CHECK_BATCH else ((False, 25),)
-        for plain, reps in runs:
-            st = [psk.init_state(params, B, device), 0]
+        st = [psk.init_state(params, B, device), 0]
 
-            def step():
-                st[0], _ = psk.demod_chunk(params, 0, st[0],
-                                           chunks[st[1] % n], plain=plain)
-                st[1] += 1
-            if not plain:
-                for _ in range(3):
-                    step()
-            ms = _cuda_ms(step, reps)
-            path = "plain" if plain else "kernels"
-            channels = B * AUDIO_S_PER_CHUNK / (ms / 1e3)
-            print(f"  DBPSK demod_chunk B={B} {path}: {ms:.3f} ms per 0.1 s "
-                  f"chunk, {channels:,.0f} realtime channels [{card}]")
-            timings[f"demod_chunk_B{B}{'_plain' if plain else ''}"] = {
-                "ms": ms, "realtime_channels": channels}
+        def step():
+            st[0], _ = psk.demod_chunk(params, 0, st[0], chunks[st[1] % n])
+            st[1] += 1
+        for _ in range(3):
+            step()
+        ms = _cuda_ms(step, 25)
+        channels = B * AUDIO_S_PER_CHUNK / (ms / 1e3)
+        print(f"  DBPSK demod_chunk B={B} kernels: {ms:.3f} ms per 0.1 s "
+              f"chunk, {channels:,.0f} realtime channels [{card}]")
+        timings[f"demod_chunk_B{B}"] = {"ms": ms,
+                                        "realtime_channels": channels}
 
         if B == MAIN_BATCH:
             # K6 on two inputs: the first chunk after the 28 cycled chunk
@@ -2439,8 +2426,9 @@ def _check_k8(params, state, planes, label, need=()):
     n_ds, B = bits.shape
     (ints, flts), k_planes = fsk_demod.stage_d(params, state, *planes)
     plain = []
-    plain_ms = _cuda_ms(lambda: plain.append(fsk_demod.stage_d(
-        params, state, *planes, plain=True)), 1)
+    plain_ms = _cuda_ms(lambda: plain.append(fsk_framing.stage_d_plain(
+        params, *fsk_demod._framing_carry(params, state), state.bit_fill,
+        *planes)), 1)
     (p_ints, p_flts), p_planes = plain[0]
     err = max(_equal_or_raise(f"K8 {label} {name}", a, b)
               for name, a, b in (("ints", ints, p_ints),
@@ -3702,8 +3690,7 @@ def _replay_wire(rec, params, wire=0):
     dfr = Deframer(1, force_python=True)
     n_bytes = 0
     for k in range(rec.n_frames):
-        state, out = fsk_demod.demod_chunk(params, 0, state,
-                                           frames[k][None], plain=True)
+        state, out = fsk_demod.demod_chunk(params, 0, state, frames[k][None])
         got = bytes(out.bytes_out[0, :int(out.byte_count[0])].numpy())
         counts, vals, events = rec.quanta[k]
         want = b"" if vals is None else bytes(vals[wire, :counts[wire]])
@@ -4631,8 +4618,7 @@ def main() -> int:
              "turns_input_ms": psk["psk_seq"]["turns_input_ms"],
              "ring_placement_ms": psk["placements"],
              "demod_chunk_ms": {n: psk[n]["ms"] for n in (
-                 "demod_chunk_B2048", "demod_chunk_B4096",
-                 "demod_chunk_B2048_plain")}}),
+                 "demod_chunk_B2048", "demod_chunk_B4096")}}),
         row("cumsum0", "cumsum0.cu", "cumsum0.py:59",
             blind[f"cumsum0_{CSUM_SHAPES[1][0]}"],
             {"other_shapes": [

@@ -11,9 +11,18 @@ their edges (partial blocks, partial tiles, T = 0, odd B, a misaligned
 bits plane) are exercised by the CPU suite: a barrier that never
 completes fails the launch instead of hanging.  K3's warp shuffles and
 ballots meet the warp's 32 emulated threads, so every group width and
-both placements of its decision records run here (with a smaller
-shared budget than the card's, so that the placements switch at short
-trellises).
+both placements of its decision records run here.
+
+Two of the card's sizes are scaled down for the emulation, which pays
+per emulated thread and not per lane of the card: the shared budget
+(16 KiB, so that the placements switch at short trellises) and the
+fewest lanes at which ``viterbi.pick`` gives 8 threads a trellis (32,
+two blocks of 16 trellises, where the card's is 768).  At 768 lanes an
+8-thread case runs ~49 blocks of 128 ``std::thread``s that meet at
+every warp shuffle: 1.4-15 s alone on 8 cores, 34-257 s beside five
+other test workers (716 test-seconds for the seven 8-thread cases of
+one tier-1 run).  Every case still reaches its width and placement
+through ``pick``; ``test_k3_pick`` holds the card's thresholds.
 
 Tolerances: K2, K8, K5, K3, K4 and the CRC kernel exactly (integer
 state machines, GF(2) arithmetic and IEEE f32 arithmetic, no
@@ -62,6 +71,8 @@ FLIP_SOFT = 1e-5
 # runs in seconds: 16 steps at G = 1 to 512 at G = 32
 K3_BUDGET = re.compile(r"kSmemBudget = [^;]+;")
 HOST_K3_BUDGET = 16 * 1024
+# ... and 8 threads a trellis from 32 lanes (the card: 768), two blocks
+HOST_K3_FEW_LANES = 32
 
 
 @pytest.fixture(scope="module")
@@ -106,13 +117,16 @@ def build_host_libs(out, names):
 
 @pytest.fixture
 def on_host(host_libs, monkeypatch):
-    """The wrappers launch the emulated kernels on CPU tensors."""
+    """The wrappers launch the emulated kernels on CPU tensors, with K3's
+    shared budget and 8-thread lane threshold scaled for the emulation
+    (the module's docstring)."""
     monkeypatch.setattr(_build, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(_build, "library", lambda name: host_libs[name])
     monkeypatch.setattr(_build, "stream", lambda: ctypes.c_void_p(None))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(viterbi, "SMEM_BUDGET", HOST_K3_BUDGET)
+    monkeypatch.setattr(viterbi, "FEW_LANES", HOST_K3_FEW_LANES)
 
 
 def _bench():
@@ -221,7 +235,7 @@ def test_k1_edges(on_host, case):
 
 
 @pytest.mark.parametrize("B,T", [(37, 4801), (1, 999)])
-def test_k2_k8_exact(on_host, B, T):
+def test_k2_k8_exact(on_host, monkeypatch, B, T):
     """K2 and K8 equal their plain versions exactly on real planes with
     syncs and bytes, at an odd B, an odd n_ds (a partial 16-step tile),
     and with the bits plane at an odd element offset (rows of its words
@@ -256,9 +270,11 @@ def test_k2_k8_exact(on_host, B, T):
                 assert torch.equal(got, want)
         fires += int(k[5].sum())
         n_bytes += int(k[3].sum())
-        state, _ = fsk_demod.sync_and_frame(params, state, bits, amps, softs,
-                                            rsum, plain=True, front=front,
-                                            ds_acc=acc)
+        with monkeypatch.context() as m:      # K2's plain version
+            m.setattr(_build, "use_kernel", lambda *tensors: False)
+            state, _ = fsk_demod.sync_and_frame(
+                params, state, bits, amps, softs, rsum, front=front,
+                ds_acc=acc)
         ds_phase = (ds_phase + x.shape[1]) % params.downsample_ratio
     assert fires == B and n_bytes == 2 * B
 

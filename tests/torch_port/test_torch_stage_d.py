@@ -168,11 +168,6 @@ def test_demod_stage_d_matches_reference_stage_d(name, overrides):
     # reduction order (test_torch_fsk_framing.py), hence the tolerance
     np.testing.assert_allclose(flts.numpy(), np.asarray(ref_flts),
                                rtol=1e-6, atol=0)
-    # plain=True is the same plain version on CPU tensors
-    again = port_demod.stage_d(pp, pstate, _t(bits, torch.bfloat16),
-                               _t(amps), _t(ratios), _t(ext_amps),
-                               plain=True)
-    assert all(torch.equal(a, b) for a, b in zip(again[1], planes))
 
 
 def test_compact_of_stage_d_is_stage_d_compact(default_config):

@@ -245,7 +245,7 @@ for n, B in cs.CSUM_SHAPES:
     ms = [cs._cuda_ms(lambda: cumsum0.csum0(x), 20) for _ in range(5)]
     lib = cs._cuda_ms(lambda: torch.cumsum(x, 0), 20)
     n_bytes = cs._csum_bound(n, B)[0]
-    bound = n_bytes / cs.HBM_BYTES_PER_S * 1e3
+    bound = cs._bound(n_bytes, 0)[0]
     print(f"turn {sys.argv[2]} K5 [{n}, {B}]: "
           f"{', '.join(f'{m:.4f}' for m in ms)} ms per call "
           f"(best {n_bytes / min(ms) / 1e6:.1f} GB/s, "

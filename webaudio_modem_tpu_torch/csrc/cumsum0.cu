@@ -32,10 +32,10 @@
 //           strict order from shared memory (consecutive lanes read
 //           consecutive words: no bank conflicts) and stores each output
 //           row coalesced (128 bytes a row).
-// The depth was measured (NVIDIA H100 80GB HBM3, 700 W; tools/variants.py
-// k5): 4 stages of 128 rows reached 47-49 % of the byte bound, 4 of 256
-// rows the same, 5, 6 or 7 stages of 128 rows 58-66 %; an L2 prefetch
-// size on the copies and streaming stores changed nothing.
+// The depth was measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 4
+// stages of 128 rows reached 47-49 % of the byte bound, 4 of 256 rows
+// the same, 5, 6 or 7 stages of 128 rows 58-66 %; an L2 prefetch size
+// on the copies and streaming stores changed nothing.
 // Stages pass through named barriers (warp_pipe.cuh): FULL once the
 // producer's copies of the stage have landed (cp.async.wait_group, then
 // bar.arrive), EMPTY once the consumer has read it.  The producer

@@ -36,7 +36,7 @@
 // per channel, and a channel's steps are sequential, so it is
 // latency-bound with one warp per SM at B=4096: the step's chain and the
 // memory instructions issued beside it set the time, ~280 clock64()
-// cycles a step in either mode (tools/variants.py k8; PERF.md).  Its
+// cycles a step in either mode (PERF.md).  Its
 // bytes: 14 B in per step and channel (bits bf16, amps, ratios, delayed
 // amps f32), and in planes mode 7 B out (i32 + 3 bools) — 0.21 GB for the
 // 0.1 s bench chunk at B=4096, 0.06 ms at 3.35 TB/s; compact mode writes

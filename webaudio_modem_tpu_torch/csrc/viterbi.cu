@@ -52,8 +52,8 @@
 // run at half the adds' rate.  G trades issue efficiency (G = 1: no
 // exchange, one warp per 32 trellises) against warps in flight (G = 32:
 // one warp per trellis, 4 shuffles and 2 ballots a step); the wrapper
-// picks G from L (ops/kernels/viterbi.py `pick`, from the measured
-// ladder of tools/variants.py k3).
+// picks G from L (ops/kernels/viterbi.py `pick`, from a ladder of the
+// widths measured on an H100, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -23,8 +23,7 @@ soft-value surface of the streaming soft decoder: K1 with every plane
 and no R.
 
 ``demod_chunk`` runs K1 and K2 on CUDA tensors and their plain PyTorch
-versions on CPU tensors; ``plain=True`` forces the plain versions on
-any device (used to compare and time the kernels against them).
+versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -325,19 +324,18 @@ def _framing_carry(params: FSKParams, state: DemodState):
 
 
 def stage_d(params: FSKParams, state: DemodState, bits, amps, ratios,
-            sub_amps, plain: bool = False):
+            sub_amps):
     """Stage D with per-step events: the framing state machine over
     [n_ds, B] streams from ``state``'s framing registers and amp window,
     the sync gate from ``state.bit_fill``.  ``sub_amps`` is the amplitude
     stream delayed by amp_window (``cat([state.amp_tail, amps])``; rows
     0..n_ds-1 are read).  Runs K8 on CUDA tensors and its plain version
-    on CPU tensors or where ``plain=True``.  Returns ((ints', flts'),
+    on CPU tensors.  Returns ((ints', flts'),
     (byte_vals i32, emits, eods, fires bool)) with the planes [n_ds, B]
     and the carry in K2's layout (``_framing_carry``)."""
     ints, flts = _framing_carry(params, state)
-    framing = fsk_framing.stage_d_plain if plain else fsk_framing.stage_d
-    return framing(params, ints, flts, state.bit_fill, bits, amps, ratios,
-                   sub_amps)
+    return fsk_framing.stage_d(params, ints, flts, state.bit_fill, bits,
+                               amps, ratios, sub_amps)
 
 
 def quality_window_update(params: FSKParams, quality: torch.Tensor,
@@ -373,13 +371,13 @@ def quality_window_update(params: FSKParams, quality: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def sync_and_frame(params: FSKParams, state: DemodState, bits, amps,
-                   softs, rsum, *, plain: bool = False, **carried):
+                   softs, rsum, **carried):
     """Stages C and D and the quality window, shared by the FSK and DBPSK
     chunk steps: from the sequential stage's planes [n_ds, B] (``rsum``
     None where ds > 256), the sync ratios, the framing kernel K2 and the
     quality refresh.  Returns (state', DemodOut), with the family's own
     sequential-stage fields ``carried`` (front, ds_acc, ...) set in
-    state'.  ``plain=True`` runs K2's plain version on any device."""
+    state'."""
     B = bits.shape[1]
     dev = bits.device
     ds = params.ds_samples_per_bit
@@ -407,12 +405,11 @@ def sync_and_frame(params: FSKParams, state: DemodState, bits, amps,
         r_tail = state.r_tail
         bit_tail = ext_bits[-W:].clone()
 
-    framing = (fsk_framing.stage_d_compact_plain if plain
-               else fsk_framing.stage_d_compact)
     ints, flts = _framing_carry(params, state)
     (ints_out, flts_out, bytes_out, byte_count, eod_fired, sync_fired,
-     fire_t) = framing(params, ints, flts, state.bit_fill, bits, amps,
-                       ratios, ext_amps, maxb)
+     fire_t) = fsk_framing.stage_d_compact(params, ints, flts,
+                                           state.bit_fill, bits, amps,
+                                           ratios, ext_amps, maxb)
     quality = quality_window_update(params, state.quality, ratios, softs,
                                     fire_t)
     new_state = state.replace(
@@ -430,25 +427,21 @@ def sync_and_frame(params: FSKParams, state: DemodState, bits, amps,
 
 
 def demod_chunk(params: FSKParams, ds_phase: int, state: DemodState,
-                samples: torch.Tensor, plain: bool = False
-                ) -> Tuple[DemodState, DemodOut]:
+                samples: torch.Tensor) -> Tuple[DemodState, DemodOut]:
     """Process one f32 [B, T] sample frame; returns (state', outputs).
 
     ``ds_phase`` = samples already pending in the downsample accumulator
-    (host-tracked: (previous ds_phase + T) % downsample_ratio).
-    ``plain=True`` runs the plain PyTorch versions of K1 and K2 on
-    whatever device the tensors are on."""
+    (host-tracked: (previous ds_phase + T) % downsample_ratio)."""
     ds = params.ds_samples_per_bit
     # R is exact in bf16 only up to ds = 256; above it K7 (no R) runs and
     # stage C takes the exact cumsum form over the bits
     use_r = ds <= 256
-    seq = fsk_seq.seq_plain if plain else fsk_seq.seq
-    front, ds_acc, bits, amps, softs, rsum = seq(
+    front, ds_acc, bits, amps, softs, rsum = fsk_seq.seq(
         params, ds_phase, state.front, state.ds_acc,
         state.bit_tail[-ds:] if use_r else None, samples.t().contiguous(),
         emit_rsum=use_r)
     return sync_and_frame(params, state, bits, amps, softs, rsum,
-                          plain=plain, front=front, ds_acc=ds_acc)
+                          front=front, ds_acc=ds_acc)
 
 
 def make_demod_chunk(params: FSKParams, ds_phase: int, donate: bool = True):

@@ -35,8 +35,8 @@ GROUP = 16               # normalization period of the grouped schedule
 THREADS = 128            # threads a block (csrc/viterbi.cu kThreads)
 SMEM_BUDGET = 112 * 1024  # shared-memory records a block (kSmemBudget)
 GROUPS = (1, 8, 32)      # threads per trellis the kernel takes
-# ``pick``'s thresholds, from the ladder of ``tools/variants.py k3`` on an
-# H100 (T = 38, 150 and 822; L from 1 to 32,768): one thread a trellis
+# ``pick``'s thresholds, from a ladder of the widths timed on an H100
+# (T = 38, 150 and 822; L from 1 to 32,768): one thread a trellis
 # from 8192 lanes (at 6144 it is 4 % faster at T = 38, 10 % slower at
 # T = 150), 8 from 768 (where 8 and 32 tie at T = 150 and 8 is 3 %
 # faster at T = 822), 32 below (at 512, 0.75 x the time of 8)

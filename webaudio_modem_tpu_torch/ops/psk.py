@@ -139,24 +139,20 @@ def state_to_reference(state: PSKDemodState) -> dict:
 # ---------------------------------------------------------------------------
 
 def demod_chunk(params: FSKParams, ds_phase: int, state: PSKDemodState,
-                samples: torch.Tensor, plain: bool = False
+                samples: torch.Tensor
                 ) -> Tuple[PSKDemodState, fsk_demod.DemodOut]:
     """Process one f32 [B, T] sample frame through the DBPSK pipeline;
-    returns (state', outputs).  ``ds_phase`` as for FSK (host-tracked);
-    ``plain=True`` runs the plain PyTorch versions of K6 and K2 on
-    whatever device the tensors are on."""
+    returns (state', outputs).  ``ds_phase`` as for FSK (host-tracked)."""
     D = params.ds_samples_per_bit
     # R is exact in bf16 only up to D = 256; above it stage C takes the
     # exact cumsum form over the bits
     use_r = D <= 256
-    seq = psk_seq.seq_plain if plain else psk_seq.seq
-    front, ds_acc, ring, bits, amps, softs, rsum = seq(
+    front, ds_acc, ring, bits, amps, softs, rsum = psk_seq.seq(
         params, ds_phase, state.front, state.ds_acc, state.ring,
         state.bit_tail[-D:] if use_r else None, samples.t().contiguous(),
         emit_rsum=use_r)
     return fsk_demod.sync_and_frame(params, state, bits, amps, softs, rsum,
-                                    plain=plain, front=front, ds_acc=ds_acc,
-                                    ring=ring)
+                                    front=front, ds_acc=ds_acc, ring=ring)
 
 
 @functools.lru_cache(maxsize=32)
